@@ -1,0 +1,216 @@
+"""Model engine registry and the colorizer adapters.
+
+Port of ``havc_tpu.engines``.  The registry caches one ``nn.Module`` per
+(family, name, device).  With a weights directory set
+(``set_weights_dir``) it loads the same converted ``<family>_<name>.npz``
+files the JAX registry reads, through the weight bridge; otherwise each
+engine gets seeded random weights made on its device from a
+``torch.Generator`` (flax's default initialisers), and
+``random_init_used`` is set.
+
+``make_deoldify_fn`` / ``make_ddcolor_fn`` return ``fn(frames)`` over
+``(B, H, W, 3)`` tensors on the engine's device.
+"""
+from __future__ import annotations
+
+import math
+import os
+import zlib
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .filters import constrained_tweak, recover_clip_luma
+from .ops.chroma import chroma_tweak
+from .ops.chroma import tweak as op_tweak
+from .utils.profiling import resolve_device
+
+__all__ = [
+    "EngineRegistry",
+    "registry",
+    "set_weights_dir",
+    "load_npz_params",
+    "make_deoldify_fn",
+    "make_ddcolor_fn",
+    "DEF_STABLE_WEIGHT",
+    "DEF_ARTISTIC_WEIGHT",
+    "DEF_TWEAK_p",
+]
+
+DEF_STABLE_WEIGHT = 0.5  # reference constants.py:56
+DEF_ARTISTIC_WEIGHT = 0.5  # reference constants.py:57
+DEF_TWEAK_p = [0.0, 1.0, 2.5, True, 0.3, 0.6, 1.5, 0.5]  # constants.py:23
+
+
+def load_npz_params(path: str) -> dict:
+    """Load a flattened ``{'a/b/c': array}`` npz into a nested tree of
+    numpy arrays."""
+    tree: dict = {}
+    with np.load(path) as flat:
+        for k in flat.files:
+            node = tree
+            parts = k.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = flat[k]
+    return tree
+
+
+def _npz_config(tree: dict) -> Optional[dict]:
+    """The ``__config__/json`` geometry blob of a converted DDColor npz."""
+    import json
+
+    blob = tree.get("__config__", {}).get("json")
+    if blob is None:
+        return None
+    return json.loads(bytes(np.asarray(blob)).decode())
+
+
+@dataclass
+class EngineRegistry:
+    """Caches one module per (family, name, device)."""
+
+    weights_dir: Optional[str] = None
+    _cache: Dict[tuple, nn.Module] = field(default_factory=dict)
+    random_init_used: bool = False
+
+    def clear(self):
+        self._cache.clear()
+
+    def deoldify(self, name: str, device=None) -> nn.Module:
+        from .models import deoldify as do
+
+        return self._get("deoldify", name, device, lambda cfg: do.make_model(name))
+
+    def ddcolor(self, name: str, device=None) -> nn.Module:
+        from .models import ddcolor as dd
+
+        def build(cfg):
+            return dd.DDColor(**cfg) if cfg else dd.DDColor.from_config(name)
+
+        return self._get("ddcolor", name, device, build)
+
+    def _get(self, family: str, name: str, device, build) -> nn.Module:
+        dev = resolve_device(device)
+        key = (family, name, dev)
+        if key not in self._cache:
+            self._cache[key] = self._make(family, name, dev, build)
+        return self._cache[key]
+
+    def _make(self, family: str, name: str, dev: torch.device, build) -> nn.Module:
+        from .models.bridge import state_dict_from_flax
+        from .models.layers import init_flax_defaults
+
+        tree = None
+        if self.weights_dir is not None:
+            path = os.path.join(self.weights_dir, f"{family}_{name}.npz")
+            if os.path.exists(path):
+                tree = load_npz_params(path)
+        # built without storage, then materialised on the target device:
+        # a full-width model is never initialised on the host
+        with torch.device("meta"):
+            model = build(_npz_config(tree) if tree is not None else None)
+        model = model.to_empty(device=dev)
+        if tree is not None:
+            model.load_state_dict(state_dict_from_flax(tree["params"]))
+        else:
+            self.random_init_used = True
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(zlib.crc32(f"{family}_{name}".encode()))
+            init_flax_defaults(model, gen)
+        return model.eval().requires_grad_(False)
+
+
+registry = EngineRegistry()
+
+
+def set_weights_dir(path: Optional[str]):
+    """Point the registry at converted checkpoints (``family_name.npz``)."""
+    registry.weights_dir = path
+    registry.clear()
+
+
+# --- frame-batch colorizers --------------------------------------------------
+
+
+def make_deoldify_fn(model: int = 0, render_factor: int = 24, device=None) -> Callable:
+    """DeOldify adapter: model 0=Video, 1=Stable, 2=Artistic; the Stable
+    output is blended 50/50 with the Video output (DEF_STABLE_WEIGHT)."""
+    from .models import deoldify as do
+
+    names = {0: "video", 1: "stable", 2: "artistic"}
+    name = names.get(model, "video")
+    m = registry.deoldify(name, device)
+    if name == "video":
+        return lambda frames: do.colorize(m, frames, render_factor=render_factor)
+    mv = registry.deoldify("video", device)
+    w = DEF_STABLE_WEIGHT if name == "stable" else DEF_ARTISTIC_WEIGHT
+
+    def fn(frames):
+        out = do.colorize(m, frames, render_factor=render_factor)
+        out_video = do.colorize(mv, frames, render_factor=render_factor)
+        return out_video * (1 - w) + out * w
+
+    return fn
+
+
+def make_ddcolor_fn(
+    model: int = 1,
+    render_factor: int = 24,
+    tweaks_flags=(False, False, False),
+    tweaks=(DEF_TWEAK_p, "none"),
+    device=None,
+) -> Callable:
+    """DDColor adapter: models 0=modelscope, 1=artistic (2/3, Zhang, not
+    ported yet); ``input_size = trunc(rf/2)*32``; optional tweak
+    prefilter (luma-constrained or plain), the hue fix, and luma recovery
+    when the prefilter ran."""
+    from .models import ddcolor as dd
+
+    input_size = math.trunc(render_factor / 2) * 32
+    tweaks_enabled, denoise_enabled, retinex_enabled = tweaks_flags
+    if len(tweaks) == 2:
+        t = list(tweaks[0])
+        hue_adjust = tweaks[1].lower()
+    else:
+        t = list(tweaks[:8])
+        hue_adjust = tweaks[8] if len(tweaks) > 8 else "none"
+    bright, cont, gamma, luma_constrained = t[0], t[1], t[2], t[3]
+    luma_min, gamma_luma_min, gamma_alpha, gamma_min = t[4], t[5], t[6], t[7]
+
+    if model > 1:
+        raise NotImplementedError(
+            "DDColor model ids 2/3 (Zhang siggraph17/eccv16) are not ported to "
+            "havc_tpu_torch yet (ROADMAP queue 1: models/zhang.py)"
+        )
+    if denoise_enabled or (tweaks_enabled and retinex_enabled):
+        raise NotImplementedError(
+            "the DDColor denoise/retinex prefilters need ops/equalize.py, not "
+            "ported to havc_tpu_torch yet (ROADMAP queue 1: the rest of the "
+            "classic surface)"
+        )
+    m = registry.ddcolor("modelscope" if model == 0 else "artistic", device)
+
+    def fn(frames):
+        x = frames
+        if tweaks_enabled:
+            if luma_constrained:
+                x = op_tweak(x, bright=bright, cont=cont)
+                x = constrained_tweak(
+                    x, luma_min=luma_min, gamma=gamma,
+                    gamma_luma_min=gamma_luma_min, gamma_alpha=gamma_alpha,
+                    gamma_min=gamma_min,
+                )
+            else:
+                x = op_tweak(x, bright=bright, cont=cont, gamma=gamma)
+        out = dd.colorize(m, x, input_size=input_size)
+        if hue_adjust not in ("none", ""):
+            out = chroma_tweak(out, hue_adjust=hue_adjust)
+        if tweaks_enabled:
+            out = recover_clip_luma(frames, out)
+        return out
+
+    return fn
