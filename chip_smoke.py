@@ -9,9 +9,14 @@ JSON line; any failure exits non-zero:
 1. ``device``: the card's name and power limit, torch/CUDA versions; TF32
    is switched off for matmuls and cuDNN (the JAX package computes in f32).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at its path's shape and at two more, with CUDA-event timings (median of
-   10 batches of 20 calls) beside the card's bound and, where one PyTorch
-   call computes the same function, that call's time.
+   at its path's shape and at ragged, misaligned and odd ones, with
+   CUDA-event timings (median of 10 batches of 20 calls) beside the card's
+   bound and, where one PyTorch call computes the same function, that
+   call's time; window attention's two launches (weights, weighted sum)
+   also timed apart; the post chain's range-limited forms checked over
+   every float of their ranges.  The ``build`` line before it gives each
+   kernel function's registers, stack, spills and static shared memory
+   (``-Xptxas -v``) and its SASS instruction count (``cuobjdump``).
 3. ``main_path``: ``havc_tpu_torch.HAVC_main(clip)`` with its defaults on a
    seeded 24-frame 1080x1920 gray clip held as CUDA tensors, with
    full-width DeOldify Video and DDColor Artistic (seeded random weights
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -76,6 +82,49 @@ def smi_name_and_limit() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def smi_max_sm_clock_hz() -> float:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def short_name(mangled: str) -> str:
+    """``_Z26window_attn_weights_kernelILi4EEv...`` -> ``window_attn_weights_kernel<4>``."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    name = mangled[m.end():m.end() + int(m.group(1))]
+    t = re.match(r"ILi(\d+)EE", mangled[m.end() + int(m.group(1)):])
+    return f"{name}<{t.group(1)}>" if t else name
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel function: registers, stack, spills and static shared
+    memory, from nvcc's ``-Xptxas -v`` output (dynamic shared memory is
+    sized at launch and does not appear there)."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = short_name(m.group(1))
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[fn].update(registers=int(m.group(1)), static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def cuda_ms(fn, reps: int = 10, inner: int = 20) -> float:
     """Device time of one call of ``fn``: the median over ``reps`` of CUDA
     events around ``inner`` back-to-back calls, after a warm-up call.  A
@@ -109,15 +158,22 @@ KW_MAIN = dict(dark_thr=0.1, dark_white=0.2, dark_sat=min(max(1.1 - 0.8, 0.10), 
                dark_bright=-0.8, sm_black=0.3, sm_white=0.7, sm_sat=0.9, sm_bright=-0.0)
 
 
-def phase_kernels(pc, card: str) -> dict:
+def phase_kernels(pc, card: str, sass_per_pixel: float, sms: int, clock_hz: float) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cases = [("main_path", WORK_SHAPE, KW_MAIN), ("colormap", WORK_SHAPE, KW_COLORMAP),
-             ("odd_sizes", (1, 30, 50, 3), KW_COLORMAP)]
+    # (name, shape, kw, start): start 1 takes the contiguous slice x[1:],
+    # whose data begin 4 B past a 16-byte boundary; "l2_resident" (8
+    # frames, 28 MB in and out) stays in the 50 MB L2, so its time per
+    # pixel against the main path's says whether device memory or the
+    # arithmetic limits
+    cases = [("main_path", WORK_SHAPE, KW_MAIN, 0), ("colormap", WORK_SHAPE, KW_COLORMAP, 0),
+             ("l2_resident", (8,) + WORK_SHAPE[1:], KW_MAIN, 0),
+             ("odd_sizes", (1, 30, 50, 3), KW_COLORMAP, 0), ("ragged", (1, 7, 11, 3), KW_MAIN, 0),
+             ("misaligned", (2, 5, 7, 3), KW_COLORMAP, 1)]
     rows, worst = [], 0.0
     main = None
-    for name, shape, kw in cases:
-        x = torch.rand(shape, generator=gen, device="cuda")
+    for name, shape, kw, start in cases:
+        x = torch.rand(shape, generator=gen, device="cuda")[start:]
         got = pc.post_chain_cuda(x, **kw)
         want = pc.post_chain_reference(x, **kw)
         torch.cuda.synchronize()
@@ -127,8 +183,9 @@ def phase_kernels(pc, card: str) -> dict:
         n_bytes = 24 * n_pix  # 12 B read + 12 B written per pixel
         ops = POST_CHAIN_OPS[bool(kw.get("cmap_ranges"))] * n_pix
         bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
-        row = dict(case=name, shape=list(shape), max_abs_err=err,
-                   kernel_ms=cuda_ms(lambda: pc.post_chain_cuda(x, **kw)),
+        kernel_ms = cuda_ms(lambda: pc.post_chain_cuda(x, **kw))
+        row = dict(case=name, shape=list(x.shape), data_offset_bytes=x.data_ptr() % 16,
+                   max_abs_err=err, kernel_ms=kernel_ms, ns_per_pixel=kernel_ms * 1e6 / n_pix,
                    plain_ms=cuda_ms(lambda: pc.post_chain_reference(x, **kw)),
                    bytes=n_bytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -136,11 +193,23 @@ def phase_kernels(pc, card: str) -> dict:
         rows.append(row)
         if name == "main_path":
             main = row
+            # the time the card takes to issue the kernel's instructions,
+            # counted statically per pixel (an upper estimate: it includes
+            # the colormap and the divisions' slow paths, which the main
+            # path does not run)
+            row["issue_ms_static"] = sass_per_pixel * n_pix / 32 / (4 * sms) / clock_hz * 1e3
         if err > KERNEL_TOL:
             emit(dict(phase="kernels", name="post_chain", cases=rows))
             fail(f"post_chain {name}: max abs err {err} > {KERNEL_TOL}")
+    forms = pc.check_range_forms()
     emit(dict(phase="kernels", name="post_chain", card=card, tol=KERNEL_TOL, cases=rows,
-              note="library_ms null: no single PyTorch call computes this function"))
+              sass_per_pixel=sass_per_pixel, sm_clock_max_hz=clock_hz, sms=sms,
+              range_form_mismatches=forms,
+              note="library_ms null: no single PyTorch call computes this function; "
+                   "range_form_mismatches: [py_mod(x, 6), py_mod(h, 1), sextant] against the "
+                   "generic forms over every float of their ranges"))
+    if forms != [0, 0, 0]:
+        fail(f"post_chain: range-limited forms differ from the generic ones: {forms}")
     return dict(name="post_chain", route="cuda", source="havc_tpu_torch/csrc/post_chain.cu",
                 replaces="havc_tpu/ops/pallas_kernels.py:208", launches=None,
                 max_abs_err=worst, ms=main["kernel_ms"], plain_ms=main["plain_ms"],
@@ -188,7 +257,11 @@ def window_sdpa_mask(rel):
 def phase_window_attn(wa, card: str) -> dict:
     import torch.nn.functional as F
 
+    # path, batch 4, a width that is not a multiple of the 4-pixel tile,
+    # channel counts that take the kernels' 4-byte paths, and the odd test
+    # shape
     cases = [("path", (1, 14, 28, 64, 1024), 0), ("batched", (4, 14, 28, 64, 1024), 1),
+             ("ragged", (1, 14, 27, 64, 1024), 2), ("scalar", (2, 5, 11, 6, 10), 3),
              ("odd", (2, 6, 9, 16, 32), 0)]
     rows, worst, main = [], 0.0, None
     for name, (b, h, w, d_qk, d_vu), seed in cases:
@@ -209,9 +282,15 @@ def phase_window_attn(wa, card: str) -> dict:
         n_bytes = 4 * b * h * w * (2 * d_qk + WIN * WIN + 2 * d_vu)
         ops = b * window_pairs(h, w) * (2 * d_qk + 2 * d_vu)
         bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
+        wts, out = wa.scratch(q, WIN // 2), torch.empty_like(got)
+
+        def half(stages):  # one of the two launches alone
+            return lambda: wa.launch_stages(q, k, v, rel, wts, out, WIN // 2, stages)
+
         row = dict(case=name, shape=[b, h, w, d_qk, d_vu], max_abs_err=err,
                    library_max_abs_err=(lib - want).abs().max().item(),
                    kernel_ms=cuda_ms(lambda: wa.window_attn_cuda(q, k, v, rel)),
+                   weights_ms=cuda_ms(half(1)), weighted_sum_ms=cuda_ms(half(2)),
                    plain_ms=cuda_ms(lambda: wa.window_attn_reference(q, k, v, rel)),
                    library_ms=cuda_ms(sdpa), bytes=n_bytes, ops=ops,
                    bound_ms=max(bytes_ms, ops_ms),
@@ -224,7 +303,9 @@ def phase_window_attn(wa, card: str) -> dict:
             fail(f"window_attn {name}: max abs err {err} > {KERNEL_TOL}")
     emit(dict(phase="kernels", name="window_attn", card=card, tol=KERNEL_TOL, cases=rows,
               note="library_ms: one scaled_dot_product_attention over all keys under the "
-                   "dense window mask (mask built outside the timing)"))
+                   "dense window mask (mask built outside the timing); weights_ms and "
+                   "weighted_sum_ms: each of the two launches alone (kernel_ms runs them as "
+                   "one call, the second starting while the first runs)"))
     return dict(name="window_attn", route="cuda", source="havc_tpu_torch/csrc/window_attn.cu",
                 replaces="havc_tpu/ops/pallas_attn.py:107", launches=None,
                 max_abs_err=worst, ms=main["kernel_ms"], plain_ms=main["plain_ms"],
@@ -315,7 +396,8 @@ def phase_main_path(ht, pc, card: str):
 def phase_profile(path: str, run, wall_s, card: str, kernel: str) -> None:
     """One more run of a path under torch.profiler: the card's busy time
     (the union of its kernel intervals) against the run's wall time, the
-    device time summed per kernel, and the kernels that take the most."""
+    device time summed per kernel, the kernels that take the most, and the
+    device time of the port's kernels whose names contain ``kernel``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -344,7 +426,8 @@ def phase_profile(path: str, run, wall_s, card: str, kernel: str) -> None:
               top=[dict(name=a.key[:90], s=a.self_device_time_total * 1e-6, count=a.count)
                    for a in dev[:12]],
               kernel=kernel, kernel_s=sum(a.self_device_time_total for a in dev
-                                          if kernel in a.key) * 1e-6))
+                                          if kernel in a.key) * 1e-6,
+              kernel_launches={a.key[:60]: a.count for a in dev if kernel in a.key}))
 
 
 # --- phase 5: the exemplar path at full width -----------------------------------------
@@ -584,18 +667,27 @@ def main() -> None:
 
     t0 = time.perf_counter()
     kernels.build_all()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              ptxas={k: [ln for ln in v.splitlines() if "ptxas" in ln]
-                     for k, v in kernels.build_logs.items()}))
+    build_s = time.perf_counter() - t0
+    sass = {name: {short_name(f): n for f, n in kernels.sass_counts(kernels._target(name)).items()}
+            for name in kernels.SOURCES}
+    emit(dict(phase="build", seconds=build_s,
+              ptxas={k: ptxas_report(v) for k, v in kernels.build_logs.items()},
+              sass_instructions=sass))
+    # the post chain's function holds the pixel program five times: four
+    # interleaved in the vector loop, one for the scalar head and tail
+    sass_per_pixel = sass["post_chain"]["post_chain_kernel"] / 5
 
-    summary = [phase_kernels(pc, smi), phase_window_attn(wa, smi)]
+    summary = [phase_kernels(pc, smi, sass_per_pixel,
+                             torch.cuda.get_device_properties(0).multi_processor_count,
+                             smi_max_sm_clock_hz()),
+               phase_window_attn(wa, smi)]
     launches, frames, wall_s = phase_main_path(ht, pc, smi)
     summary[0]["launches"] = launches
     phase_profile("main_path", lambda: ht.HAVC_main(ht.Clip(frames=frames)), wall_s, smi,
-                  "post_chain_kernel")
+                  "post_chain")
     del frames
     summary[1]["launches"], run_exemplar, ex_wall_s = phase_exemplar_path(ht, wa, smi)
-    phase_profile("exemplar_path", run_exemplar, ex_wall_s, smi, "window_attn_kernel")
+    phase_profile("exemplar_path", run_exemplar, ex_wall_s, smi, "window_attn")
     del run_exemplar
     phase_exemplar_memory(smi)
     phase_parity(ht)

@@ -11,32 +11,58 @@
 //
 // Bound: operations.  The function does 2 x (d_qk + d_vu) operations per
 // (pixel, in-frame offset) pair; out-of-frame offsets have weight 0 and
-// are skipped.  At ColorMNet's path shape (1, 14, 28, 64 / 1024) 154 x
-// 364 = 56,056 of the 392 x 225 pairs lie in the frame: 0.122 GFLOP, 1.82
-// us at the card's f32 rate, against 3.76 MB read, 1.12 us.  Design: one CTA per run of TW = 4 pixels of a row and per chunk
-// of 256 output channels (grid ceil(W/4) x H x B*ceil(d_vu/256)).
-// The CTA stages its scaled q in shared memory, computes the TW x 225
-// logits with one warp per (pixel, offset) dot product (lanes over d_qk,
-// shuffle sum), takes the softmax per pixel with one warp each, and then
-// each thread owns one output channel: it walks the window's rows and the
-// TW + 2*max_dis columns they cover once, loading each v value once for
-// all TW pixels whose window holds it.  Offsets are tested against the
-// frame instead of reading zero-padded copies of k and v.  Neither the
-// unfolded patches nor the weights reach device memory; v (1.6 MB at the
-// path shape) is read from the 50 MB L2 by every CTA whose window covers
-// it, and that L2 traffic, not device memory, is what this design pays.
+// are skipped.  At ColorMNet's path shape (1, 14, 28, 64 / 1024) 56,056
+// of the 392 x 225 pairs lie in the frame: 0.122 GFLOP, 1.82 us at the
+// card's f32 rate, against 3.76 MB read, 1.12 us.  At this size what the
+// time goes to is latency: 392 pixels give little parallelism, each step
+// waits on a load from L2, and v (1.6 MB) is re-read from the 50 MB L2
+// by every tile whose windows cover it.
+//
+// Design: two launches over tiles of TH x TW = 2 x 4 output pixels.
+// 1. window_attn_weights_kernel, one CTA per tile: a thread per window
+//    position of the tile ((TH + 2 max_dis) x (TW + 2 max_dis), 288 at
+//    max_dis 7) loads that position's k into registers and takes its dot
+//    product with each of the tile's TP = 8 scaled queries (broadcast
+//    from shared memory): each k vector is read once for the 8 pixels,
+//    and every thread computes whole dot products, with no shuffle
+//    reduction.  Then warp p takes the softmax of pixel p once, 8 offsets
+//    per lane at a time, and the CTA writes the tile's weights as one
+//    padded block: per window position, TP floats, 0 where the position
+//    is outside a pixel's window.
+// 2. window_attn_sum_kernel, one CTA per tile and per 128 output channels
+//    (4 per thread, 16-byte copies), two warps that take alternate rows:
+//    each warp streams its v rows through a 3-stage cp.async ring (each
+//    thread copies and reads only its own channels, so the ring needs no
+//    barrier) and adds every v vector into the TP accumulators it serves,
+//    reading the TP weights of that position as float4 broadcasts; warp 1
+//    hands its sums to warp 0 at the end.  Each v vector loaded serves
+//    all 8 pixels (36 loads per pixel at 2 x 4, against 225 for one pixel
+//    alone); 392 CTAs at the path shape.  It is a programmatic dependent
+//    launch: it starts while the weights kernel runs, fetches its first
+//    v rows, and waits for the weights with griddepcontrol.wait.
+// This replaces the first design, a single kernel (one CTA per 4 pixels
+// of a row and per 256 channels), which recomputed the logits in each of
+// the 4 channel-chunk CTAs, reduced each dot product across a warp with
+// shuffles, and read v with dependent 4-byte loads.
 //
 // Offset order o = (dy + max_dis) * win + (dx + max_dis), dy-major: the
 // channel order of rel.  q is scaled in f32 before the dot product, as
-// the TPU kernel does.  Numerics: the package builds every kernel without
-// fast math and with -fmad=false; this kernel does not need the latter,
-// since its tolerance against the plain version (1e-5) already covers its
-// other summation order.  expf and the division are the accurate ones.
+// the TPU kernel does.  Numerics: built without fast math; multiply-adds
+// may contract (the tolerance against the plain version, 1e-5, covers
+// another rounding order).  expf and the division are the accurate ones.
+// Out-of-frame offsets get exactly 0 weight (expf(-1e8 - m) is 0).
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#define TW 4         // pixels of a row per CTA
-#define THREADS 256  // one output channel per thread
+#define WA_TH 2                // output tile rows
+#define WA_TW 4                // output tile columns
+#define WA_TP (WA_TH * WA_TW)  // pixels of a tile
+#define SUM_WARPS 2            // warps of a weighted-sum CTA
+#define STAGES 3               // v rows in flight per warp in the sum kernel's ring
+
+static_assert(WA_TP <= STAGES * WA_TW, "a warp's sums must fit in its ring");
+static_assert(WA_TP % 4 == 0, "a position's tile weights are read as float4");
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -50,122 +76,445 @@ __device__ __forceinline__ float warp_max(float m) {
   return m;
 }
 
-__global__ void __launch_bounds__(THREADS)
-window_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ rel,
-                   float* __restrict__ out, int H, int W, int d_qk, int d_vu,
-                   int max_dis, int n_chunks, float scale) {
-  extern __shared__ float smem[];
-  const int win = 2 * max_dis + 1;
-  const int n_off = win * win;
-  float* q_s = smem;                // TW * d_qk, scaled queries
-  float* attn = smem + TW * d_qk;   // TW * n_off, logits then weights
+// floor(i / n) for 0 <= i < 2^22, given inv = 1.0f / n: (i + 0.5) / n is
+// at least 0.5 / n from the next integer, and the two roundings of
+// (i + 0.5) * inv move it by at most (i + 0.5) / n * 2^-23, which is less.
+// Every index divided here is below the shared-memory or weight-block
+// size, far under 2^22.
+__device__ __forceinline__ int div_small(int i, float inv) {
+  return (int)(((float)i + 0.5f) * inv);
+}
 
-  const int x0 = blockIdx.x * TW;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z / n_chunks;
-  const int chunk = blockIdx.z % n_chunks;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const long long hw = (long long)H * W;
-  const float* qb = q + b * hw * d_qk;
-  const float* kb = k + b * hw * d_qk;
-  const float* vb = v + b * hw * d_vu;
-  const float* rb = rel + b * hw * n_off;
-  float* ob = out + b * hw * d_vu;
+template <int V>  // bytes 4 * V, both addresses aligned to them
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
 
-  for (int i = tid; i < TW * d_qk; i += blockDim.x) {
-    const int p = i / d_qk, d = i % d_qk;
-    const int x = x0 + p;
-    q_s[i] = x < W ? qb[((long long)y * W + x) * d_qk + d] * scale : 0.0f;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // logits: one warp per (pixel, offset); every branch is warp-uniform
-  for (int j = warp; j < TW * n_off; j += n_warps) {
-    const int p = j / n_off, o = j % n_off;
-    const int x = x0 + p;
-    if (x >= W) continue;
-    const int yy = y + o / win - max_dis;
-    const int xx = x + o % win - max_dis;
-    float logit = -1e8f;
-    if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-      const float* kp = kb + ((long long)yy * W + xx) * d_qk;
-      const float* qp = q_s + p * d_qk;
-      float s = 0.0f;
-      for (int d = lane; d < d_qk; d += 32) s += qp[d] * kp[d];
-      logit = warp_sum(s) + rb[((long long)y * W + x) * n_off + o];
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- 1. logits and softmax -------------------------------------------------
+
+#define K_REGS 16                 // float4 of k a thread holds (d_qk <= 64); beyond, read again
+#define SOFTMAX_UNROLL 8          // offsets a lane takes at once in the softmax (8 x 32 >= 225)
+#define GATHER 8                  // loads in flight per thread when staging rel and q
+#define WEIGHTS_MAX_THREADS 512   // a thread per window position, up to this
+
+// dst[i] = load(i) for i < n over the CTA's threads, GATHER loads in
+// flight per thread before their stores
+template <typename F>
+__device__ __forceinline__ void gather(float* dst, int n, F load) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += GATHER * blockDim.x) {
+    float t[GATHER];
+#pragma unroll
+    for (int u = 0; u < GATHER; ++u) {
+      const int i = i0 + u * blockDim.x;
+      t[u] = i < n ? load(i) : 0.0f;
     }
-    if (lane == 0) attn[j] = logit;
+#pragma unroll
+    for (int u = 0; u < GATHER; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < n) dst[i] = t[u];
+    }
+  }
+}
+
+template <int V>  // 4: k 16-byte aligned and d_qk % 4 == 0; 1: any
+__device__ __forceinline__ float4 load_k4(const float* kp, int d, int d_qk) {
+  if constexpr (V == 4) {
+    return __ldg(reinterpret_cast<const float4*>(kp + d));
+  } else {
+    return make_float4(d < d_qk ? __ldg(kp + d) : 0.0f, d + 1 < d_qk ? __ldg(kp + d + 1) : 0.0f,
+                       d + 2 < d_qk ? __ldg(kp + d + 2) : 0.0f,
+                       d + 3 < d_qk ? __ldg(kp + d + 3) : 0.0f);
+  }
+}
+
+// One CTA per tile, at least one warp per pixel (warp p takes pixel p's
+// softmax) and one thread per window position of the tile.  Shared
+// memory: q_s (TP x d4, the scaled queries, d_qk rounded up to 4 with
+// zeros), r_s (TP x n_off, rel), l_s (TP x n_off, logits then weights).
+template <int V>
+__global__ void __launch_bounds__(WEIGHTS_MAX_THREADS)
+window_attn_weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ rel, float* __restrict__ wts, int H,
+                           int W, int d_qk, int max_dis, float scale) {
+  // let the weighted sum launch now: it fetches v while this grid runs,
+  // and waits for this grid to finish before it reads the weights
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ float4 smem4[];
+  const int win = 2 * max_dis + 1, n_off = win * win;
+  const int ph = WA_TH + 2 * max_dis, pw = WA_TW + 2 * max_dis;
+  const int x0 = blockIdx.x * WA_TW, y0 = blockIdx.y * WA_TH, b = blockIdx.z;
+  const int ybase = y0 - max_dis, xbase = x0 - max_dis;
+  const int tid = threadIdx.x, lane = tid & 31, p = tid >> 5;
+  const int y = y0 + p / WA_TW, x = x0 + p % WA_TW;
+  const bool live = p < WA_TP && y < H && x < W;  // warp p has a pixel in the frame
+  const long long hw = (long long)H * W, base = b * hw;
+  const int d4 = (d_qk + 3) & ~3;
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* r_s = q_s + WA_TP * d4;
+  float* l_s = r_s + WA_TP * n_off;
+
+  // this thread's window position: its k, fetched first, into registers
+  const float inv_pw = 1.0f / pw;
+  float4 kr[K_REGS];
+  int r = 0, c = 0;
+  const float* kp = k;
+  auto fetch = [&](int pos) {
+    r = div_small(pos, inv_pw);
+    c = pos - r * pw;
+    const int yy = ybase + r, xx = xbase + c;
+    if (pos >= ph * pw || yy < 0 || yy >= H || xx < 0 || xx >= W) return false;
+    kp = k + (base + (long long)yy * W + xx) * d_qk;
+#pragma unroll
+    for (int j = 0; j < K_REGS; ++j)
+      if (4 * j < d4) kr[j] = load_k4<V>(kp, 4 * j, d_qk);
+    return true;
+  };
+  bool have = fetch(tid);
+  // the tile's rel, and its queries scaled
+  const float inv_off = 1.0f / n_off, inv_d4 = 1.0f / d4;
+  gather(r_s, WA_TP * n_off, [&](int i) {
+    const int pp = div_small(i, inv_off), o = i - pp * n_off;
+    const int yy = y0 + pp / WA_TW, xx = x0 + pp % WA_TW;
+    return yy < H && xx < W ? __ldg(rel + (base + (long long)yy * W + xx) * n_off + o) : 0.0f;
+  });
+  gather(q_s, WA_TP * d4, [&](int i) {
+    const int pp = div_small(i, inv_d4), d = i - pp * d4;
+    const int yy = y0 + pp / WA_TW, xx = x0 + pp % WA_TW;
+    const float* qp = q + (base + (long long)yy * W + xx) * d_qk + d;
+    return yy < H && xx < W && d < d_qk ? __ldg(qp) * scale : 0.0f;
+  });
+  __syncthreads();
+
+  // a thread per in-frame window position: the dot product of its k with
+  // every query of the tile, kept where the position lies in that
+  // pixel's window
+  for (int pos = tid; pos < ph * pw; pos += blockDim.x) {
+    if (pos != tid) have = fetch(pos);
+    if (!have) continue;
+#pragma unroll 1  // unrolled, the kernel's code doubles and it runs slower
+    for (int pp = 0; pp < WA_TP; ++pp) {
+      const float* qp = q_s + pp * d4;
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < K_REGS; ++j) {
+        if (4 * j < d4) {
+          const float4 a = *reinterpret_cast<const float4*>(qp + 4 * j);
+          s0 += a.x * kr[j].x;
+          s1 += a.y * kr[j].y;
+          s2 += a.z * kr[j].z;
+          s3 += a.w * kr[j].w;
+        }
+      }
+      for (int d = 4 * K_REGS; d < d4; d += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(qp + d);
+        const float4 kv = load_k4<V>(kp, d, d_qk);
+        s0 += a.x * kv.x;
+        s1 += a.y * kv.y;
+        s2 += a.z * kv.z;
+        s3 += a.w * kv.w;
+      }
+      const int dy = r - pp / WA_TW, dx = c - pp % WA_TW;
+      if (dy >= 0 && dy < win && dx >= 0 && dx < win)
+        l_s[pp * n_off + dy * win + dx] = (s0 + s1) + (s2 + s3);
+    }
   }
   __syncthreads();
 
-  // softmax over the offsets, one warp per pixel
-  for (int p = warp; p < TW; p += n_warps) {
-    if (x0 + p >= W) continue;
-    float* a = attn + p * n_off;
+  // softmax of warp p's pixel over its offsets: + rel, out of frame -1e8;
+  // each pass takes SOFTMAX_UNROLL offsets per lane at once
+  if (live) {
+    float* lp = l_s + p * n_off;
+    const float* rq = r_s + p * n_off;
+    const float inv_win = 1.0f / win;
     float m = -INFINITY;
-    for (int o = lane; o < n_off; o += 32) m = fmaxf(m, a[o]);
+    for (int o0 = lane; o0 < n_off; o0 += 32 * SOFTMAX_UNROLL) {
+#pragma unroll
+      for (int u = 0; u < SOFTMAX_UNROLL; ++u) {
+        const int o = o0 + 32 * u;
+        if (o < n_off) {
+          const int dy = div_small(o, inv_win), dx = o - dy * win;
+          const int yy = y + dy - max_dis, xx = x + dx - max_dis;
+          const float logit = yy >= 0 && yy < H && xx >= 0 && xx < W ? lp[o] + rq[o] : -1e8f;
+          lp[o] = logit;
+          m = fmaxf(m, logit);
+        }
+      }
+    }
     m = warp_max(m);
     float s = 0.0f;
-    for (int o = lane; o < n_off; o += 32) {
-      const float e = expf(a[o] - m);
-      a[o] = e;
-      s += e;
+    for (int o0 = lane; o0 < n_off; o0 += 32 * SOFTMAX_UNROLL) {
+#pragma unroll
+      for (int u = 0; u < SOFTMAX_UNROLL; ++u) {
+        const int o = o0 + 32 * u;
+        if (o < n_off) {
+          const float e = expf(lp[o] - m);
+          lp[o] = e;
+          s += e;
+        }
+      }
     }
     s = warp_sum(s);
-    for (int o = lane; o < n_off; o += 32) a[o] = a[o] / s;
-  }
-  __syncthreads();
-
-  // weighted sum of v: each v value of the covered rows is loaded once
-  // and added into every pixel of the run whose window holds it
-  const int c = chunk * blockDim.x + tid;
-  if (c >= d_vu) return;
-  float acc[TW];
+    // 0 / s is 0: the out-of-frame offsets skip the division, whose slow
+    // path a zero numerator takes
+    for (int o0 = lane; o0 < n_off; o0 += 32 * SOFTMAX_UNROLL) {
 #pragma unroll
-  for (int p = 0; p < TW; ++p) acc[p] = 0.0f;
-  const int xlo = max(x0 - max_dis, 0);
-  const int xhi = min(x0 + TW - 1 + max_dis, W - 1);
-  for (int dy = -max_dis; dy <= max_dis; ++dy) {
-    const int yy = y + dy;
-    if (yy < 0 || yy >= H) continue;
-    const float* vrow = vb + (long long)yy * W * d_vu + c;
-    const int orow = (dy + max_dis) * win + max_dis;
-    for (int xx = xlo; xx <= xhi; ++xx) {
-      const float val = vrow[(long long)xx * d_vu];
-#pragma unroll
-      for (int p = 0; p < TW; ++p) {
-        const int dx = xx - (x0 + p);
-        if (dx >= -max_dis && dx <= max_dis) acc[p] += attn[p * n_off + orow + dx] * val;
+      for (int u = 0; u < SOFTMAX_UNROLL; ++u) {
+        const int o = o0 + 32 * u;
+        if (o < n_off) {
+          const float e = lp[o];
+          lp[o] = e == 0.0f ? 0.0f : e / s;
+        }
       }
     }
   }
+  __syncthreads();
+
+  // the tile's padded weight block, written whole (zeros included), four
+  // pixels of a position per float4
+  const int blk4 = ph * pw * (WA_TP / 4);
+  float4* blk = reinterpret_cast<float4*>(wts) +
+                ((long long)(b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * blk4;
+  for (int i = tid; i < blk4; i += blockDim.x) {
+    const int pos = i / (WA_TP / 4), pp0 = (i % (WA_TP / 4)) * 4;
+    const int r = div_small(pos, inv_pw), c = pos - r * pw;
+    float w[4];
 #pragma unroll
-  for (int p = 0; p < TW; ++p)
-    if (x0 + p < W) ob[((long long)y * W + x0 + p) * d_vu + c] = acc[p];
+    for (int e = 0; e < 4; ++e) {
+      const int pp = pp0 + e;
+      const int dy = r - pp / WA_TW, dx = c - pp % WA_TW;
+      w[e] = dy >= 0 && dy < win && dx >= 0 && dx < win && y0 + pp / WA_TW < H &&
+                     x0 + pp % WA_TW < W
+                 ? l_s[pp * n_off + dy * win + dx]
+                 : 0.0f;
+    }
+    blk[i] = make_float4(w[0], w[1], w[2], w[3]);
+  }
 }
 
-// C entry point for ctypes: launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a shape
-// the grid or the static shared-memory budget does not take.  The caller
-// owns every buffer.
-extern "C" int window_attn_launch(const void* q, const void* k, const void* v,
-                                  const void* rel, void* out, int B, int H, int W,
-                                  int d_qk, int d_vu, int max_dis, float scale,
+// ---- 2. weighted sum of v ---------------------------------------------------
+
+// Shared memory: the tile's weight block (ph x pw x TP floats), then per
+// warp a ring of STAGES v rows (pw positions x 32 x V floats each).  The
+// warps take the window's in-frame rows in turn (warp w the rows ya + w,
+// ya + w + SUM_WARPS, ...) and share the output channels; after its rows,
+// a warp other than 0 leaves its sums in its ring for warp 0 (TP x 32 x V
+// floats fit: TP <= STAGES * TW).
+template <int V>  // output channels per thread: 4 (aligned, d_vu % 4 == 0) or 1
+__global__ void __launch_bounds__(32 * SUM_WARPS)
+window_attn_sum_kernel(const float* __restrict__ v, const float* __restrict__ wts,
+                       float* __restrict__ out, int H, int W, int d_vu, int max_dis,
+                       int n_chunks) {
+  extern __shared__ float4 smem4[];
+  const int ph = WA_TH + 2 * max_dis, pw = WA_TW + 2 * max_dis;
+  const int n4 = ph * pw * (WA_TP / 4);
+  const int b = blockIdx.z / n_chunks, chunk = blockIdx.z - b * n_chunks;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (chunk * 32 + lane) * V;
+  const bool active = c < d_vu;
+  const int x0 = blockIdx.x * WA_TW, y0 = blockIdx.y * WA_TH;
+  const int ybase = y0 - max_dis, xbase = x0 - max_dis;
+  const int ya = max(ybase, 0), yb = min(ybase + ph - 1, H - 1);
+  const int xa = max(xbase, 0), xb = min(xbase + pw - 1, W - 1);
+  const int cols = xb - xa + 1;
+  const int rows = yb - ya >= warp ? (yb - ya - warp) / SUM_WARPS + 1 : 0;
+  const long long hw = (long long)H * W;
+  const int slot = pw * 32 * V;  // floats of one ring stage
+  float* ring = reinterpret_cast<float*>(smem4 + n4) + warp * STAGES * slot + lane * V;
+  const float* vt = v + (b * hw + (long long)(ya + warp) * W + xa) * d_vu + c;
+
+  auto issue = [&](int j) {  // the warp's j-th row into its ring stage
+    if (!active || j >= rows) return;
+    float* dst = ring + (j % STAGES) * slot;
+    const float* src = vt + (long long)j * SUM_WARPS * W * d_vu;
+    for (int i = 0; i < cols; ++i) cp_async<V>(dst + i * 32 * V, src + (long long)i * d_vu);
+  };
+  // v does not depend on the weights: fetch the first rows before waiting
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    issue(j);
+    cp_async_commit();
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const float4* blk =
+      reinterpret_cast<const float4*>(wts) +
+      ((long long)(b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * n4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    cp_async<4>(reinterpret_cast<float*>(smem4 + i), reinterpret_cast<const float*>(blk + i));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[WA_TP][V];
+#pragma unroll
+  for (int p = 0; p < WA_TP; ++p)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[p][e] = 0.0f;
+
+  for (int j = 0; j < rows; ++j) {
+    issue(j + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    const float* vs = ring + (j % STAGES) * slot;
+    const float4* wq =
+        smem4 + ((ya + warp + j * SUM_WARPS - ybase) * pw + xa - xbase) * (WA_TP / 4);
+#pragma unroll 2
+    for (int i = 0; i < cols; ++i) {
+      float val[V];
+      if constexpr (V == 4) {
+        const float4 f = *reinterpret_cast<const float4*>(vs + i * 32 * V);
+        val[0] = f.x; val[1] = f.y; val[2] = f.z; val[3] = f.w;
+      } else {
+        val[0] = vs[i * 32];
+      }
+#pragma unroll
+      for (int q4 = 0; q4 < WA_TP / 4; ++q4) {
+        const float4 w4 = wq[i * (WA_TP / 4) + q4];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          acc[4 * q4 + 0][e] += w4.x * val[e];
+          acc[4 * q4 + 1][e] += w4.y * val[e];
+          acc[4 * q4 + 2][e] += w4.z * val[e];
+          acc[4 * q4 + 3][e] += w4.w * val[e];
+        }
+      }
+    }
+  }
+
+  // warps 1.. hand their sums to warp 0 through their own rings
+  if (warp > 0) {
+#pragma unroll
+    for (int p = 0; p < WA_TP; ++p)
+#pragma unroll
+      for (int e = 0; e < V; ++e) ring[p * 32 * V + e] = acc[p][e];
+  }
+  __syncthreads();
+  if (warp > 0 || !active) return;
+  for (int w = 1; w < SUM_WARPS; ++w) {
+    const float* other = ring + w * STAGES * slot;
+#pragma unroll
+    for (int p = 0; p < WA_TP; ++p)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[p][e] += other[p * 32 * V + e];
+  }
+#pragma unroll
+  for (int p = 0; p < WA_TP; ++p) {
+    const int y = y0 + p / WA_TW, x = x0 + p % WA_TW;
+    if (y < H && x < W) {
+      float* dst = out + (b * hw + (long long)y * W + x) * d_vu + c;
+      if constexpr (V == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+      else
+        dst[0] = acc[p][0];
+    }
+  }
+}
+
+// ---- host entry points -------------------------------------------------------
+
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Sets the dynamic shared-memory limit of `fn` where `bytes` needs more
+// than the default 48 KB; cudaErrorInvalidValue above the card's limit.
+static int smem_for(const void* fn, size_t bytes) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Floats of the weights scratch that window_attn_launch needs: one padded
+// weight block per tile.
+extern "C" long long window_attn_scratch_floats(int B, int H, int W, int max_dis) {
+  const long long tiles = (long long)B * ((H + WA_TH - 1) / WA_TH) * ((W + WA_TW - 1) / WA_TW);
+  return tiles * (WA_TH + 2 * max_dis) * (WA_TW + 2 * max_dis) * WA_TP;
+}
+
+// C entry point for ctypes: launches on `stream` the weights kernel
+// (stages & 1), which writes `wts`, and the weighted sum (stages & 2),
+// which reads it; the wrapper passes 3, the two halves are apart only for
+// timing.  Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a shape the grid or the card's shared memory
+// does not take.  The caller owns every buffer; `wts` holds
+// window_attn_scratch_floats(B, H, W, max_dis) floats, 16-byte aligned.
+extern "C" int window_attn_launch(const void* q, const void* k, const void* v, const void* rel,
+                                  void* wts, void* out, int B, int H, int W, int d_qk,
+                                  int d_vu, int max_dis, float scale, int stages,
                                   void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || d_vu <= 0) return 0;
-  const int win = 2 * max_dis + 1;
-  const size_t smem = sizeof(float) * (size_t)TW * (size_t)(d_qk + win * win);
-  const int n_chunks = (d_vu + THREADS - 1) / THREADS;
-  if (max_dis < 0 || d_qk <= 0 || smem > 48 * 1024 || H > 65535 ||
-      (long long)B * n_chunks > 65535)
+  const int tiles_y = (H + WA_TH - 1) / WA_TH, tiles_x = (W + WA_TW - 1) / WA_TW;
+  if (max_dis < 0 || d_qk <= 0 || tiles_y > 65535 || B > 65535 || !aligned16(wts))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((W + TW - 1) / TW, H, B * n_chunks);
-  window_attn_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)rel,
-      (float*)out, H, W, d_qk, d_vu, max_dis, n_chunks, scale);
+  const int win = 2 * max_dis + 1;
+  const int ph = WA_TH + 2 * max_dis, pw = WA_TW + 2 * max_dis;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (stages & 1) {
+    const size_t smem = sizeof(float) * WA_TP * ((size_t)((d_qk + 3) & ~3) + 2 * win * win);
+    const bool v4 = d_qk % 4 == 0 && aligned16(k);
+    const void* fn = v4 ? (const void*)window_attn_weights_kernel<4>
+                        : (const void*)window_attn_weights_kernel<1>;
+    int rc = smem_for(fn, smem);
+    if (rc != 0) return rc;
+    int threads = (ph * pw + 31) / 32 * 32;  // a thread per window position
+    if (threads < 32 * WA_TP) threads = 32 * WA_TP;
+    if (threads > WEIGHTS_MAX_THREADS) threads = WEIGHTS_MAX_THREADS;
+    const dim3 grid(tiles_x, tiles_y, B);
+    if (v4)
+      window_attn_weights_kernel<4><<<grid, threads, smem, st>>>(
+          (const float*)q, (const float*)k, (const float*)rel, (float*)wts, H, W, d_qk,
+          max_dis, scale);
+    else
+      window_attn_weights_kernel<1><<<grid, threads, smem, st>>>(
+          (const float*)q, (const float*)k, (const float*)rel, (float*)wts, H, W, d_qk,
+          max_dis, scale);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  if (stages & 2) {
+    const bool v4 = d_vu % 4 == 0 && aligned16(v) && aligned16(out);
+    const int vec = v4 ? 4 : 1;
+    const int n_chunks = (d_vu / vec + 31) / 32;
+    if ((long long)B * n_chunks > 65535) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        sizeof(float) * ((size_t)ph * pw * WA_TP + (size_t)SUM_WARPS * STAGES * pw * 32 * vec);
+    const void* fn = v4 ? (const void*)window_attn_sum_kernel<4>
+                        : (const void*)window_attn_sum_kernel<1>;
+    int rc = smem_for(fn, smem);
+    if (rc != 0) return rc;
+    // programmatic dependent launch: may start while the weights kernel
+    // runs (it waits for it with griddepcontrol.wait)
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles_x, tiles_y, B * n_chunks);
+    cfg.blockDim = dim3(32 * SUM_WARPS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const float* vp = (const float*)v;
+    const float* wp = (const float*)wts;
+    float* op = (float*)out;
+    rc = v4 ? (int)cudaLaunchKernelEx(&cfg, window_attn_sum_kernel<4>, vp, wp, op, H, W, d_vu,
+                                      max_dis, n_chunks)
+            : (int)cudaLaunchKernelEx(&cfg, window_attn_sum_kernel<1>, vp, wp, op, H, W, d_vu,
+                                      max_dis, n_chunks);
+    if (rc != 0) return rc;
+  }
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@ import torch
 from .. import kernels
 from .colorspace import pymod
 
-__all__ = ["post_chain", "post_chain_cuda", "post_chain_reference", "MAX_RANGES"]
+__all__ = ["post_chain", "post_chain_cuda", "post_chain_reference", "check_range_forms",
+           "MAX_RANGES"]
 
 MAX_RANGES = 8  # hue ranges the kernel's parameter block holds
 
@@ -219,6 +220,20 @@ def post_chain_cuda(frames: torch.Tensor, **kw) -> torch.Tensor:
 
 
 post_chain_cuda.launches = 0
+
+
+def check_range_forms() -> list:
+    """Mismatches of the kernel's range-limited forms against the generic
+    ones, over every float of their ranges, counted on the current CUDA
+    device: ``[py_mod(x, 6) on [-1, 1], py_mod(h, 1) on [0, 1], the hue
+    sextant on [0, 1]]`` (NaN and -0 included).  All zero when the kernel
+    gives the same bits as the generic forms."""
+    counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    rc = kernels.load("post_chain").post_chain_check_forms(
+        counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"check_range_forms: launch failed with CUDA error {rc}")
+    return counts.tolist()
 
 
 def post_chain(frames: torch.Tensor, **kw) -> torch.Tensor:

@@ -12,8 +12,9 @@ Three functions, as for the post chain:
 * ``window_attn_reference`` — the plain PyTorch version, a line-for-line
   copy of ``havc_tpu.ops.pallas_attn.local_window_attention_reference``
   (unfold + einsum);
-* ``window_attn_cuda`` — the CUDA C++ kernel (``csrc/window_attn.cu``) on
-  CUDA tensors; ``window_attn_cuda.launches`` counts its launches;
+* ``window_attn_cuda`` — the CUDA C++ kernels (``csrc/window_attn.cu``:
+  weights, then the weighted sum) on CUDA tensors;
+  ``window_attn_cuda.launches`` counts its calls;
 * ``window_attn`` — the dispatcher: the plain version for CPU tensors, the
   kernel for CUDA tensors, no fallback.
 """
@@ -48,9 +49,8 @@ def window_attn_reference(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
     return torch.einsum("bhwn,bhwnc->bhwc", attn, unfold(v))
 
 
-def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
-    """Launch the CUDA kernel; every input a contiguous float32 CUDA
-    tensor on one device."""
+def _check(q, k, v, rel, max_dis: int):
+    """Raise on what the kernel does not take."""
     win = 2 * max_dis + 1
     for name, t in (("q", q), ("k", k), ("v", v), ("rel", rel)):
         if not t.is_cuda:
@@ -62,25 +62,50 @@ def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
         if t.device != q.device:
             raise ValueError("window_attn_cuda: all inputs must be on one device")
     b, h, w, d_qk = q.shape
-    d_vu = v.shape[-1]
     if tuple(k.shape) != (b, h, w, d_qk) or tuple(v.shape[:3]) != (b, h, w) \
             or tuple(rel.shape) != (b, h, w, win * win):
         raise ValueError(
             f"window_attn_cuda: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} rel {tuple(rel.shape)} do not match (max_dis {max_dis})"
         )
-    out = torch.empty((b, h, w, d_vu), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out
+
+
+def launch_stages(q, k, v, rel, wts, out, max_dis: int, stages: int) -> None:
+    """Launch the weights kernel (``stages & 1``, writes the scratch
+    ``wts``) and the weighted sum (``stages & 2``, reads ``wts``, writes
+    ``out``).  ``window_attn_cuda`` launches both; one half alone is for
+    timing it."""
+    b, h, w, d_qk = q.shape
     lib = kernels.load("window_attn")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.window_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
-            b, h, w, d_qk, d_vu, max_dis, 1.0 / math.sqrt(d_qk), stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), wts.data_ptr(),
+            out.data_ptr(), b, h, w, d_qk, v.shape[-1], max_dis, 1.0 / math.sqrt(d_qk),
+            stages, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"window_attn_cuda: launch failed with CUDA error {rc}")
+        raise RuntimeError(f"window_attn_cuda: launch failed with CUDA error {rc} "
+                           f"(a window or d_qk too large for shared memory gives 1)")
+
+
+def scratch(q, max_dis: int) -> torch.Tensor:
+    """The weights scratch of one call: a padded weight block per tile of
+    output pixels (451,584 B at the path shape)."""
+    b, h, w, _ = q.shape
+    n = kernels.load("window_attn").window_attn_scratch_floats(b, h, w, max_dis)
+    return torch.empty(n, dtype=torch.float32, device=q.device)
+
+
+def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
+    """Launch the CUDA kernels; every input a contiguous float32 CUDA
+    tensor on one device.  One call, two launches, counted once."""
+    _check(q, k, v, rel, max_dis)
+    b, h, w, _ = q.shape
+    out = torch.empty((b, h, w, v.shape[-1]), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    launch_stages(q, k, v, rel, scratch(q, max_dis), out, max_dis, 3)
     window_attn_cuda.launches += 1
     return out
 

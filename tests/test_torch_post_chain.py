@@ -77,15 +77,27 @@ def test_kernel_wrapper_refuses_cpu_tensor_and_too_many_ranges():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,kw", [
-    ((2, 64, 128, 3), KW), ((1, 30, 50, 3), KW), ((3, 96, 96, 3), MAIN_KW),
-], ids=["colormap", "odd_sizes", "main_path"])
-def test_kernel_matches_plain_version_on_card(shape, kw):
+@pytest.mark.parametrize("shape,kw,start", [
+    ((2, 64, 128, 3), KW, 0), ((1, 30, 50, 3), KW, 0), ((3, 96, 96, 3), MAIN_KW, 0),
+    ((1, 7, 11, 3), MAIN_KW, 0), ((2, 5, 7, 3), KW, 1),
+], ids=["colormap", "odd_sizes", "main_path", "ragged", "misaligned"])
+def test_kernel_matches_plain_version_on_card(shape, kw, start):
+    """``start`` 1 takes the contiguous slice ``x[1:]``, whose data start
+    35 pixels (420 B) into the storage: not on a 16-byte boundary."""
     _need_cuda()
-    x = torch.from_numpy(_frames(shape, 6)).cuda()
+    x = torch.from_numpy(_frames(shape, 6)).cuda()[start:]
+    assert x.is_contiguous()
     before = pc.post_chain_cuda.launches
     got = pc.post_chain(x, **kw)
     torch.cuda.synchronize()
     assert pc.post_chain_cuda.launches == before + 1
     want = pc.post_chain_reference(x, **kw)
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_range_limited_forms_match_generic_on_card():
+    """The kernel's cheaper remainder and sextant forms give the generic
+    forms' bits over every float of their ranges."""
+    _need_cuda()
+    assert pc.check_range_forms() == [0, 0, 0]

@@ -82,8 +82,14 @@ def test_kernel_wrapper_refuses_cpu_tensor_and_bad_shapes():
         wa.window_attn(q.to("meta"), k, v, rel)
 
 
+# the path shape, batch 4 at it, a width that is not a multiple of the
+# 4-pixel tile, and channel counts that take the kernels' 4-byte paths
+CARD_CASES = [((1, 14, 28, 64), 1024, 7, 0), ((4, 14, 28, 64), 1024, 7, 1),
+              ((1, 14, 27, 64), 1024, 7, 2), ((2, 5, 11, 6), 10, 2, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,d_vu,max_dis,seed", CASES + [((1, 14, 28, 64), 1024, 7, 0)])
+@pytest.mark.parametrize("shape,d_vu,max_dis,seed", CASES + CARD_CASES)
 def test_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
     _need_cuda()
     q, k, v, rel = (torch.from_numpy(x).cuda() for x in _inputs(shape, d_vu, max_dis, seed))
