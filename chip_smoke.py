@@ -37,6 +37,25 @@ JSON line; any failure exits non-zero:
 7. ``parity_cpu_gpu``: the test-sized main path and exemplar path (tiny
    models, render factor 4) with ``device="cpu"`` and on CUDA; max abs <=
    1e-4.
+8. ``streaming``: ``HAVC_main_streaming`` with its defaults (Medium,
+   constrained-chroma, batch 8, chunk 64) and the full-width engines on a
+   seeded 136-frame 1080x1920 gray ``.y4m`` (written to a temporary
+   directory, no OpenCV needed), ``sink="null"``: wall time and fps of
+   the second call with the transfers, the selected transfer modes, peak
+   device memory, the host syncs ``torch.cuda.set_sync_debug_mode``
+   reports and the event waits; ``source="device", sink="device",
+   count=128`` for the compute-only rate; peak memory at 72 and 136
+   frames within 2 %; a profiled run (busy share) and a stage-timed one;
+   a 520-frame clip with the transfers and compute only (steady state:
+   the retires overlap the card's work);
+   the test-sized streaming path on the CPU and on the card, the same
+   packed bytes within 1 code value.
+9. ``restore_streaming``: ``streaming.HAVC_restore_video_streaming``
+   (ColorMNet, ``engine_config="full"``, chunk 16, ``sink="null"``) on a
+   seeded 48-frame 1080p gray ``.y4m`` and a colored reference ``.y4m`` of
+   three scenes: fps, window-attention launches, peak memory, host syncs,
+   the scene flags ([0, 16, 32]), and chunk 16 against chunk 48 within 1
+   code value; a stage-timed run, then its profiled run.
 
 Then the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the result line.  Without CUDA, or without the
@@ -45,11 +64,14 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -441,19 +463,24 @@ def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
     return np.stack([np.interp(xs, np.arange(n_in), eye[j]) for j in range(n_in)], axis=1)
 
 
-def scene_clip_1080p(seed: int = 5) -> np.ndarray:
-    """Seeded 24-frame 1080x1920 gray clip in three scenes of 8 frames:
-    each scene a fresh smooth random field (9x16 knots, values in
-    [0.15, 0.75]) that drifts 2 px to the left per frame.  (T, H, W, 3)."""
-    t, h, w = MAIN_SHAPE
+def smooth_frames(t: int, per_scene: int, seed: int, h: int = 1080, w: int = 1920):
+    """Yield ``t`` seeded (h, w) float32 gray frames in scenes of
+    ``per_scene``: each scene a fresh smooth random field (9x16 knots,
+    values in [0.15, 0.75]) that drifts 2 px to the left per frame."""
     rng = np.random.default_rng(seed)
     a = _interp_matrix(h, 9).astype(np.float32)
-    b = _interp_matrix(w + 2 * 8, 16).astype(np.float32)
-    y = np.empty((t, h, w), np.float32)
-    for s in range(3):
+    b = _interp_matrix(w + 2 * per_scene, 16).astype(np.float32)
+    for s in range(-(-t // per_scene)):
         field = a @ (0.15 + 0.6 * rng.random((9, 16), dtype=np.float32)) @ b.T
-        for i in range(8):
-            y[8 * s + i] = field[:, 2 * i:2 * i + w]
+        for i in range(min(per_scene, t - per_scene * s)):
+            yield field[:, 2 * i:2 * i + w]
+
+
+def scene_clip_1080p(seed: int = 5) -> np.ndarray:
+    """Seeded 24-frame 1080x1920 gray clip in three scenes of 8 frames,
+    (T, H, W, 3)."""
+    t, h, w = MAIN_SHAPE
+    y = np.stack(list(smooth_frames(t, 8, seed, h, w)))
     return np.repeat(y[..., None], 3, axis=-1)
 
 
@@ -648,6 +675,339 @@ def phase_parity(ht) -> None:
         engines.make_deoldify_fn, engines.make_ddcolor_fn = real_do, real_dd
 
 
+# --- phases 8, 9: the streaming paths ---------------------------------------------------
+
+STREAM_T = 136  # frames of the streaming clip (about 0.42 GB of .y4m)
+STEADY_T = 520  # frames of the steady-state clip (about 1.6 GB of .y4m)
+RESTORE_T, RESTORE_CUTS = 48, [0, 16, 32]
+
+
+def write_y4m(path: str, frames, h: int, w: int, chroma=None) -> None:
+    """A C420mpeg2 .y4m of float [0, 1] gray ``frames`` (Y = round(255 y));
+    ``chroma(i)`` gives frame i's (U, V) planes, else neutral 128."""
+    neutral = np.full(h * w // 2, 128, np.uint8).tobytes()
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F25:1 Ip A1:1 C420mpeg2\n".encode())
+        for i, y in enumerate(frames):
+            f.write(b"FRAME\n")
+            f.write(np.rint(np.clip(y, 0.0, 1.0) * 255.0).astype(np.uint8).tobytes())
+            if chroma is None:
+                f.write(neutral)
+            else:
+                for plane in chroma(i):
+                    f.write(plane.tobytes())
+
+
+class Recorder:
+    """While active: what every ``_WritePipeline._retire`` receives (the
+    packed chunk and, in uv420 mode, the host's Y planes), and every write
+    pipeline and upload ring made, for their event-wait counts."""
+
+    def __init__(self, streaming, keep_bytes: bool = True):
+        self.s, self.keep = streaming, keep_bytes
+        self.packed, self.y, self.pipes, self.uploaders = [], [], [], []
+
+    def __enter__(self):
+        s, rec = self.s, self
+        self.saved = (s._WritePipeline._retire, s._WritePipeline.__init__, s._Uploader.__init__)
+        retire, pipe_init, up_init = self.saved
+
+        def spy_retire(pipe, packed, meta, n):
+            if rec.keep:
+                rec.packed.append(np.array(packed.wait())[:n])
+                yp = pipe.y_provider
+                if pipe.use_uv420:
+                    def y_spy(m, k):
+                        y = yp(m, k)
+                        rec.y.append(np.array(y)[:k])
+                        return y
+                    pipe.y_provider = y_spy
+                try:
+                    return retire(pipe, packed, meta, n)
+                finally:
+                    pipe.y_provider = yp
+            return retire(pipe, packed, meta, n)
+
+        def spy_pipe_init(pipe, *a, **kw):
+            pipe_init(pipe, *a, **kw)
+            rec.pipes.append(pipe)
+
+        def spy_up_init(up, *a, **kw):
+            up_init(up, *a, **kw)
+            rec.uploaders.append(up)
+
+        s._WritePipeline._retire = spy_retire
+        s._WritePipeline.__init__ = spy_pipe_init
+        s._Uploader.__init__ = spy_up_init
+        return self
+
+    def __exit__(self, *exc):
+        s = self.s
+        s._WritePipeline._retire, s._WritePipeline.__init__, s._Uploader.__init__ = self.saved
+
+    def waits(self) -> dict:
+        """Retires that found their chunk's event pending, and uploads that
+        found their staging buffer in flight."""
+        return dict(retire_event_waits=sum(p.waits for p in self.pipes),
+                    upload_slot_waits=sum(u.waits for u in self.uploaders))
+
+    def joined(self, what: str) -> np.ndarray:
+        return np.concatenate(getattr(self, what)).astype(np.int16)
+
+
+def count_syncs(run):
+    """Run ``run()`` with the CUDA sync debug mode on: (its result, the
+    host syncs PyTorch reported, their first sites)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return out, len(syncs), sorted(set(syncs))[:6]
+
+
+def timed(run):
+    """(result, seconds) of ``run()``, ending in a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def chroma_stats(uv: np.ndarray) -> dict:
+    """Mean distance of the U/V bytes from neutral 128."""
+    return dict(mean_abs_uv_minus_128=float(np.abs(uv.astype(np.float32) - 128.0).mean()))
+
+
+def phase_streaming(ht, pc, wa, card: str, tmp: str, has_cv2: bool):
+    from havc_tpu_torch import streaming
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    h, w = MAIN_SHAPE[1:]
+    src = f"{tmp}/stream_gray.y4m"
+    t0 = time.perf_counter()
+    write_y4m(src, smooth_frames(STREAM_T, 17, 9, h, w), h, w)
+    write_s = time.perf_counter() - t0
+
+    def run(**kw):
+        return ht.HAVC_main_streaming(src, f"{tmp}/unused.mp4", **dict(dict(sink="null"), **kw))
+
+    t0 = time.perf_counter()
+    first_n = run(count=72)  # first call: cuDNN algorithm selection, resize matrices
+    first_s = time.perf_counter() - t0
+
+    # the second call, every frame with its transfers; the kernel counts
+    # are zeroed just before it and read just after
+    pc.post_chain_cuda.launches = wa.window_attn_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(streaming, keep_bytes=False) as rec:
+        (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(lambda: run()))
+    launches = dict(post_chain=pc.post_chain_cuda.launches, window_attn=wa.window_attn_cuda.launches)
+    transfer = streaming.last_transfer()
+    peak_136 = torch.cuda.max_memory_allocated()
+    waits = rec.waits()
+
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(streaming) as rec72:
+        (n72, wall72_s) = timed(lambda: run(count=72))
+    peak_72 = torch.cuda.max_memory_allocated()
+    uv72, y72 = rec72.joined("packed"), rec72.joined("y")
+
+    (n_dev, dev_s) = timed(lambda: run(source="device", sink="device", count=128))
+
+    enable_profiling(True)
+    reset_stages()
+    _, profiled_s = timed(lambda: run(count=72))
+    enable_profiling(False)
+    stages = {k: v[0] for k, v in stage_times().items()}
+
+    # steady state: with pipeline depth 3 and chunk 64, 192 frames and a
+    # halo are in flight, so in the 136-frame clip no chunk retires before
+    # the decode ends; in a clip several times longer the retires (and
+    # their host Y tail) overlap the card's work, as in a film
+    long_src = f"{tmp}/stream_long.y4m"
+    write_y4m(long_src, smooth_frames(STEADY_T, 17, 11, h, w), h, w)
+    (n_long, long_s) = timed(lambda: ht.HAVC_main_streaming(long_src, f"{tmp}/unused.mp4",
+                                                            sink="null"))
+    os.remove(long_src)
+    (n_long_dev, long_dev_s) = timed(lambda: run(source="device", sink="device", count=STEADY_T))
+
+    peak_ratio = abs(peak_136 - peak_72) / peak_136
+    chunks = -(-STREAM_T // 64)
+    emit(dict(phase="streaming", card=card, clip=[STREAM_T, h, w], source_y4m_bytes=os.path.getsize(src),
+              write_y4m_s=write_s, first_call_frames=first_n, first_call_s=first_s,
+              frames=n, wall_s=wall_s, fps=n / wall_s, transfer=transfer,
+              host_syncs=sync_n, sync_sites=sync_sites, chunks=chunks,
+              host_syncs_per_chunk=sync_n / chunks, **waits,
+              max_memory_allocated_136=peak_136, max_memory_allocated_72=peak_72,
+              peak_memory_rel_diff=peak_ratio, frames_72=n72, wall_72_s=wall72_s,
+              compute_only_frames=n_dev, compute_only_s=dev_s, compute_only_fps=n_dev / dev_s,
+              stage_timed_wall_72_s=profiled_s, stages_s=stages, launches=launches,
+              steady_frames=n_long, steady_wall_s=long_s, steady_fps=n_long / long_s,
+              steady_compute_only_frames=n_long_dev, steady_compute_only_s=long_dev_s,
+              steady_compute_only_fps=n_long_dev / long_dev_s,
+              out_uv_shape=list(uv72.shape), out_y_range=[int(y72.min()), int(y72.max())],
+              **chroma_stats(uv72)))
+    if (n, n72, n_dev, n_long, n_long_dev) != (STREAM_T, 72, 128, STEADY_T, STEADY_T):
+        fail(f"streaming: frames written {n}, {n72}, {n_dev}, {n_long}, {n_long_dev} != "
+             f"{STREAM_T}, 72, 128, {STEADY_T}, {STEADY_T}")
+    if transfer != "gray+uv420":
+        fail(f"streaming: transfer modes {transfer} != gray+uv420")
+    if tuple(uv72.shape) != (72, h // 2, w) or tuple(y72.shape) != (72, h, w):
+        fail(f"streaming: retired shapes {uv72.shape}, {y72.shape}")
+    if y72.min() < 16 or y72.max() > 235 or chroma_stats(uv72)["mean_abs_uv_minus_128"] <= 0.0:
+        fail("streaming: studio-swing Y out of [16, 235] or no chroma")
+    if peak_ratio > 0.02:
+        fail(f"streaming: peak memory at 72 and {STREAM_T} frames differ by {peak_ratio:.2%}")
+    if sync_n > chunks + 1:
+        fail(f"streaming: {sync_n} host syncs over {chunks} chunks")
+    if has_cv2:
+        phase_streaming_video_sink(streaming, tmp)
+    return run, wall_s, launches
+
+
+def phase_streaming_video_sink(streaming, tmp: str) -> None:
+    """One ``sink="video"`` round trip: encode an mp4 and decode it back."""
+    import cv2
+
+    src, out = f"{tmp}/small.y4m", f"{tmp}/small.mp4"
+    write_y4m(src, smooth_frames(24, 8, 4, 180, 320), 180, 320)
+    n = streaming.HAVC_main_streaming(src, out, chunk_size=16)
+    cap = cv2.VideoCapture(out)
+    frames = []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        frames.append(bgr)
+    cap.release()
+    emit(dict(phase="streaming_video_sink", frames_written=n, frames_decoded=len(frames),
+              shape=list(frames[0].shape) if frames else None))
+    if n != 24 or len(frames) != 24 or frames[0].shape != (180, 320, 3):
+        fail("streaming_video_sink: the encoded mp4 does not decode to 24 frames of 180x320")
+
+
+def phase_streaming_parity(tmp: str) -> None:
+    """The test-sized streaming path (tiny engines, render factor 4) with
+    ``device="cpu"`` and on the card: the packed bytes within 1 code."""
+    from havc_tpu_torch import engines, streaming
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
+    src = f"{tmp}/parity.y4m"
+    write_y4m(src, smooth_frames(40, 10, 6, 48, 64), 48, 64)
+    saved = dict(engines.registry._cache)
+    real_do, real_dd = engines.make_deoldify_fn, engines.make_ddcolor_fn
+    engines.registry._cache.update(tiny_engines([cpu, gpu]))
+    engines.make_deoldify_fn = lambda model=0, render_factor=24, **kw: real_do(model, 4, **kw)
+    engines.make_ddcolor_fn = lambda model=1, render_factor=24, **kw: real_dd(model, 4, **kw)
+    try:
+        outs = {}
+        for dev in ("cpu", None):
+            with Recorder(streaming) as rec:
+                streaming.HAVC_main_streaming(src, "unused.mp4", chunk_size=16, sink="null",
+                                              device=dev)
+            outs[dev] = (rec.joined("packed"), rec.joined("y"))
+    finally:
+        engines.registry._cache.clear()
+        engines.registry._cache.update(saved)
+        engines.make_deoldify_fn, engines.make_ddcolor_fn = real_do, real_dd
+    diff = np.abs(outs["cpu"][0] - outs[None][0])
+    y_equal = bool(np.array_equal(outs["cpu"][1], outs[None][1]))
+    emit(dict(phase="parity_cpu_gpu", path="streaming", clip=[40, 48, 64],
+              max_abs_code_diff=int(diff.max()), unequal_share=float(np.mean(diff > 0)),
+              y_planes_equal=y_equal, tol_codes=1))
+    if diff.max() > 1 or not y_equal:
+        fail(f"parity_cpu_gpu streaming: max code diff {diff.max()}, Y planes equal {y_equal}")
+
+
+def restore_chroma(i: int, h: int, w: int):
+    """The colored reference's (U, V) planes at frame ``i``: a tint per
+    scene of 16 frames, varying smoothly across the frame."""
+    scene = i // 16
+    du, dv = [(-40, 30), (35, -25), (20, 40)][scene % 3]
+    yy, xx = np.mgrid[0:h // 2, 0:w // 2].astype(np.float32)
+    ramp = 12.0 * np.sin(xx / 97.0 + scene) * np.cos(yy / 71.0)
+    u = np.clip(np.rint(128 + du + ramp), 0, 255).astype(np.uint8)
+    v = np.clip(np.rint(128 + dv - ramp), 0, 255).astype(np.uint8)
+    return u, v
+
+
+def phase_restore_streaming(wa, card: str, tmp: str):
+    from havc_tpu_torch import exemplar, streaming
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    h, w = MAIN_SHAPE[1:]
+    src, ref = f"{tmp}/restore_gray.y4m", f"{tmp}/restore_ref.y4m"
+    write_y4m(src, smooth_frames(RESTORE_T, 16, 49, h, w), h, w)
+    write_y4m(ref, smooth_frames(RESTORE_T, 16, 49, h, w), h, w,
+              chroma=lambda i: restore_chroma(i, h, w))
+    flags = []
+    real_propagate = exemplar.colormnet_propagate
+
+    def propagate(engine, frames, ref_ab, is_ref, **kw):
+        flags.append(np.asarray(is_ref))
+        return real_propagate(engine, frames, ref_ab, is_ref, **kw)
+
+    def run(chunk_size=16):
+        return streaming.HAVC_restore_video_streaming(
+            src, ref, f"{tmp}/unused.mp4", ex_model=0, engine_config="full",
+            chunk_size=chunk_size, sink="null")
+
+    exemplar.colormnet_propagate = propagate
+    try:
+        with Recorder(streaming) as rec16:
+            first_n, first_s = timed(run)  # first call: the chunk shapes' cuDNN selection
+    finally:
+        exemplar.colormnet_propagate = real_propagate
+    cuts = np.nonzero(np.concatenate(flags))[0].tolist()
+
+    wa.window_attn_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
+    launches = wa.window_attn_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    transfer = streaming.last_transfer()
+
+    with Recorder(streaming) as rec48:
+        n48, wall48_s = timed(lambda: run(chunk_size=RESTORE_T))
+    uv16, uv48 = rec16.joined("packed"), rec48.joined("packed")
+
+    enable_profiling(True)
+    reset_stages()
+    _, profiled_s = timed(run)
+    enable_profiling(False)
+    stages = {k: v[0] for k, v in stage_times().items()}
+    diff = np.abs(uv16 - uv48)
+    emit(dict(phase="restore_streaming", card=card, clip=[RESTORE_T, h, w], scene_cuts=cuts,
+              first_call_s=first_s, frames=n, wall_s=wall_s, fps=n / wall_s, transfer=transfer,
+              host_syncs=sync_n, sync_sites=sync_sites, chunks=-(-RESTORE_T // 16),
+              max_memory_allocated=peak, window_attn_calls=launches,
+              window_attn_launches=2 * launches, chunk48_s=wall48_s,
+              chunk16_vs_48_max_code_diff=int(diff.max()),
+              chunk16_vs_48_unequal_share=float(np.mean(diff > 0)),
+              stage_timed_wall_s=profiled_s, stages_s=stages,
+              out_uv_shape=list(uv16.shape), **chroma_stats(uv16)))
+    if first_n != RESTORE_T or n != RESTORE_T or n48 != RESTORE_T:
+        fail(f"restore_streaming: frames written {first_n}, {n}, {n48} != {RESTORE_T}")
+    if cuts != RESTORE_CUTS:
+        fail(f"restore_streaming: scene cuts {cuts} != {RESTORE_CUTS}")
+    if transfer != "gray+uv420" or tuple(uv16.shape) != (RESTORE_T, h // 2, w):
+        fail(f"restore_streaming: transfer {transfer}, retired shape {uv16.shape}")
+    if launches < RESTORE_T:
+        fail(f"restore_streaming: window attention ran {launches} times, expected {RESTORE_T}")
+    if diff.max() > 1:
+        fail(f"restore_streaming: chunk 16 and chunk 48 differ by {diff.max()} codes")
+    if chroma_stats(uv16)["mean_abs_uv_minus_128"] <= 1.0:
+        fail("restore_streaming: no chroma came through from the reference")
+    return run, wall_s, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -660,7 +1020,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_name_and_limit()
     emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
-              count=torch.cuda.device_count(), torch=torch.__version__,
+              count=torch.cuda.device_count(), host_cpus=os.cpu_count(),
+              torch_cpu_threads=torch.get_num_threads(), torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
               matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32))
@@ -691,6 +1052,15 @@ def main() -> None:
     del run_exemplar
     phase_exemplar_memory(smi)
     phase_parity(ht)
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        run_stream, st_wall_s, _ = phase_streaming(ht, pc, wa, smi, tmp, has_cv2)
+        phase_profile("streaming", run_stream, st_wall_s, smi, "post_chain")
+        del run_stream
+        phase_streaming_parity(tmp)
+        run_restore, rs_wall_s, _ = phase_restore_streaming(wa, smi, tmp)
+        phase_profile("restore_streaming", run_restore, rs_wall_s, smi, "window_attn")
+        del run_restore
 
     emit({"kernels": summary})
     print(smi, flush=True)

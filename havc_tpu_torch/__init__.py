@@ -1,15 +1,18 @@
 """havc_tpu_torch — the PyTorch/CUDA port of havc_tpu.
 
-The main path, ``HAVC_main(clip)`` with its defaults, and the ColorMNet
-exemplar path, ``HAVC_main(clip, EnableDeepEx=True)``, run on an NVIDIA
+The main path, ``HAVC_main(clip)`` with its defaults, the ColorMNet
+exemplar path, ``HAVC_main(clip, EnableDeepEx=True)``, and the
+bounded-memory streaming paths (``HAVC_main_streaming``,
+``streaming.HAVC_restore_video_streaming`` with ColorMNet) run on an NVIDIA
 GPU: plain tensor code in PyTorch, and the TPU kernels rewritten in CUDA
 C++ for Hopper (``csrc/post_chain.cu``, the fused post chain;
 ``csrc/window_attn.cu``, ColorMNet's local window attention), built with
 ``nvcc`` at first use.  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; without CUDA the default raises.
 
-The package imports torch and numpy only; it never imports jax or
-havc_tpu.
+The package imports torch, numpy and scipy; OpenCV only inside the
+functions that open a container file (``.y4m`` needs none).  It never
+imports jax or havc_tpu.
 """
 
 __version__ = "0.1.0"
@@ -18,3 +21,4 @@ from .api import *  # noqa: F401,F403
 from .clip import Clip, SceneFlags  # noqa: F401
 from .exemplar import HAVC_cmnet2, HAVC_deepex  # noqa: F401
 from .scene import scene_detect  # noqa: F401
+from .streaming import HAVC_main_streaming  # noqa: F401

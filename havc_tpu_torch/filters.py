@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from .ops.chroma import adjust_hue_range, chroma_tweak, luma_adjusted_levels, tweak
-from .ops.colorspace import copy_chroma
+from .ops.colorspace import copy_chroma, rgb_to_yuv, yuv_to_rgb
 from .ops.merge import luma_masked_merge, w_luma_masked_merge
 from .ops.resize import resize
 
@@ -20,6 +20,7 @@ __all__ = [
     "colormap_filter",
     "constrained_tweak",
     "recover_clip_luma",
+    "recover_clip_luma_y",
     "chroma_resize_restore",
 ]
 
@@ -82,6 +83,14 @@ def constrained_tweak(
 def recover_clip_luma(hires: torch.Tensor, colored: torch.Tensor) -> torch.Tensor:
     """Chroma of ``colored`` on the luma of ``hires``."""
     return torch.clamp(copy_chroma(colored, hires), 0.0, 1.0)
+
+
+def recover_clip_luma_y(y: torch.Tensor, colored: torch.Tensor) -> torch.Tensor:
+    """``recover_clip_luma`` from the luma plane ``(..., H, W)`` itself:
+    the same output, and a third of the memory for a caller that keeps
+    the luma (streaming's rolling full-resolution buffer)."""
+    yuv = rgb_to_yuv(colored)
+    return torch.clamp(yuv_to_rgb(torch.stack([y, yuv[..., 1], yuv[..., 2]], dim=-1)), 0.0, 1.0)
 
 
 def chroma_resize_restore(hires: torch.Tensor, lowres: torch.Tensor) -> torch.Tensor:

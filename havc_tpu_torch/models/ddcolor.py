@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ..ops.colorspace import lab_to_rgb, rgb_to_lab
 from ..ops.resize import resize
 from .convnext import CONVNEXT_CONFIGS, LN_EPS, ConvNeXt
-from .deoldify import PixelShuffleICNR, UnetBlockWide
+from .deoldify import PixelShuffleICNR, UnetBlockWide, _imagenet_stats
 
 __all__ = ["DDColor", "DDCOLOR_CONFIGS", "colorize", "sine_position_embedding"]
 
@@ -152,8 +152,7 @@ class DDColor(nn.Module):
     def forward(self, x):
         img = x
         if self.do_normalize:
-            mean = torch.tensor([0.485, 0.456, 0.406], dtype=x.dtype, device=x.device)
-            std = torch.tensor([0.229, 0.224, 0.225], dtype=x.dtype, device=x.device)
+            mean, std = _imagenet_stats(x.dtype, x.device)
             x = (x - mean[:, None, None]) / std[:, None, None]
         f4, f8, f16, f32 = self.convnext(x)
         y = f32

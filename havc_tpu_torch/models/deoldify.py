@@ -17,6 +17,7 @@ so that models/bridge.py maps a flax tree onto the ``state_dict``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -205,6 +206,13 @@ def make_model(weights_name: str) -> nn.Module:
     return DeOldifyWide(encoder=encoder, nf_factor=int(nf))
 
 
+@functools.lru_cache(maxsize=8)
+def _imagenet_stats(dtype: torch.dtype, device: torch.device):
+    # made once per device: a copy from the host would wait for the card
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def colorize(model: nn.Module, rgb: torch.Tensor, render_factor: int = 24) -> torch.Tensor:
     """Colorize ``(B, H, W, 3)`` RGB: square-stretch to
     ``render_factor*16`` (bilinear), rec601 gray, imagenet-normalize,
@@ -213,8 +221,7 @@ def colorize(model: nn.Module, rgb: torch.Tensor, render_factor: int = 24) -> to
     h, w = rgb.shape[-3], rgb.shape[-2]
     size = render_factor * 16
     sq = rgb_to_gray(resize(rgb, size, size, "bilinear"))
-    mean = torch.tensor(IMAGENET_MEAN, dtype=rgb.dtype, device=rgb.device)
-    std = torch.tensor(IMAGENET_STD, dtype=rgb.dtype, device=rgb.device)
+    mean, std = _imagenet_stats(rgb.dtype, rgb.device)
     out = model(((sq - mean) / std).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     out = torch.clamp(out * std + mean, 0.0, 1.0)
     out_full = resize(out, h, w, "bilinear")

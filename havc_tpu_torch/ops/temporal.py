@@ -13,6 +13,7 @@ Each function takes the whole ``(T, H, W, 3)`` clip at once.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -47,6 +48,12 @@ def average_weights(nframes: int, weighted: bool = False) -> np.ndarray:
         wc = 100 - 2 * sum(ramp)
         w = ramp + [wc] + ramp
     return (np.asarray(w, np.float64) / 100.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _weights_on(nframes: int, weighted: bool, device: torch.device) -> torch.Tensor:
+    # made once per device: a copy from pageable host memory waits for the card
+    return torch.from_numpy(average_weights(nframes, weighted)).to(device)
 
 
 def _segments(scenechange, T: int, device) -> torch.Tensor:
@@ -85,7 +92,7 @@ def chroma_stabilizer(
     if nframes % 2 == 0:
         nframes += 1
     nh = (nframes - 1) // 2
-    w = torch.from_numpy(average_weights(nframes, weighted)).to(frames.device)
+    w = _weights_on(nframes, bool(weighted), frames.device)
 
     yuv = rgb_to_yuv(frames)
     y_c = yuv[..., 0]

@@ -1,4 +1,5 @@
-"""Utility helpers: stage timing and the device rule."""
+"""Utility helpers: stage timing, the device rule and the uint8 transfer
+boundary."""
 
 from .profiling import (  # noqa: F401
     enable_profiling,
@@ -8,4 +9,11 @@ from .profiling import (  # noqa: F401
     stage_report,
     stage_timer,
     stage_times,
+)
+from .transfer import (  # noqa: F401
+    gray_to_rgb,
+    rgb_unit_to_i420_u8,
+    rgb_unit_to_uv420_u8,
+    u8_to_unit,
+    unit_to_u8,
 )

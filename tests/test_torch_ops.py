@@ -195,10 +195,32 @@ def test_combine_models(kw):
            _rgb((2, 16, 24, 3), 12), _rgb((2, 16, 24, 3), 13), **kw)
 
 
+def _dark_to_bright(seed):
+    """Four frames whose mean luma falls in each branch of the dark red
+    fix: about 0.5, 0.25, 0.15 and 0.07."""
+    x = _rgb((4, 16, 24, 3), seed)
+    return (x * np.array([1.0, 0.5, 0.3, 0.14], np.float32)[:, None, None, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method=3, b_weight=0.5),
+    dict(method=3, b_weight=1.0, cmc_p=[0.3]),
+    dict(method=4, b_weight=0.6),
+    dict(method=4, b_weight=1.0, lmm_p=[0.4, 0.4, 0.8]),
+    dict(method=5, b_weight=0.4),
+    dict(method=7, b_weight=0.5),
+    dict(method=7, b_weight=1.0, cmc_p=[0.15, False, 10, 30]),
+], ids=["constrained", "constrained_1", "luma_masked", "luma_masked_binary", "adaptive_luma",
+        "chroma_bound", "chroma_bound_no_fix"])
+def test_combine_models_methods_3_4_5_7(kw):
+    _check(jmerge.combine_models, tmerge.combine_models,
+           _dark_to_bright(20), _dark_to_bright(21), **kw)
+
+
 def test_combine_models_unported_method_raises():
     a = torch.zeros(1, 4, 4, 3)
-    with pytest.raises(NotImplementedError):
-        tmerge.combine_models(a, a, method=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmerge.combine_models(a, a, method=6)
 
 
 # --- filters ------------------------------------------------------------------
