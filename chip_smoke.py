@@ -57,6 +57,29 @@ JSON line; any failure exits non-zero:
    the scene flags ([0, 16, 32]), and chunk 16 against chunk 48 within 1
    code value; a stage-timed run, then its profiled run.
 
+10. ``bw_tune_memory`` (run before any model is on the card):
+    ``HAVC_bw_tune`` on 8 frames of 1080x1920 with ``bw_method`` 0 (luma
+    CLAHE) and 2 (CLAHE per channel): peak device memory after a reset.
+11. ``placebo_path``: ``HAVC_main(clip, Preset="Placebo",
+    ColorFix="Retinex/Red", BlackWhiteTune="Medium")`` on the main path's
+    clip: 2x2 tiles of 594x1056 colorized at render factor 32 (512x512),
+    the DDColor MSRCP prefilter, the Exploration LUT, the CLAHE BW tune at
+    1080p, deflicker, one post-chain launch; then its ``profile`` run.
+12. ``veryslow_path``: ``HAVC_main(clip, Preset="VerySlow",
+    ColorModel="Artistic+Siggraph17", CombMethod="Chroma-Retention",
+    ColorFix="None", BlackWhiteTune="Light", BlackWhiteMode=4)``:
+    full-width DeOldify Artistic (with Video) and Zhang Siggraph17, the
+    denoise postfilter, merge method 6, ``HAVC_ColorAdjust``'s LUT remaps,
+    one post-chain launch in each pass; then its ``profile`` run.
+13. ``streaming_tuned``: ``HAVC_main_streaming`` with ``BWTune="Light",
+    LUT=2`` on 72 frames of the streaming phase's ``.y4m``: transfer modes
+    (``gray+i420``), fps, host syncs per retired chunk, peak memory.
+``parity_cpu_gpu`` also covers the test-sized Placebo and VerySlow paths
+(6x136x240, tiny engines with DeOldify Deep "nano" and Zhang at width 8)
+and tuned streaming (within 1 code).  Each kernel's ``launches_by_path``
+gives its launches on every path driven (counts zeroed just before each
+path and read just after).
+
 Then the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the result line.  Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -84,6 +107,7 @@ KERNEL_TOL = 1e-5
 PARITY_TOL = 1e-4
 MAIN_SHAPE = (24, 1080, 1920)
 WORK_SHAPE = (24, 384, 384, 3)  # the stabilizer's work clip at 1080p
+WORK_SHAPE_RF32 = (24, 512, 512, 3)  # Placebo / VerySlow: render factor 32
 EX_CUTS = [0, 8, 16]  # the exemplar clip's scene changes
 
 
@@ -189,6 +213,7 @@ def phase_kernels(pc, card: str, sass_per_pixel: float, sms: int, clock_hz: floa
     # pixel against the main path's says whether device memory or the
     # arithmetic limits
     cases = [("main_path", WORK_SHAPE, KW_MAIN, 0), ("colormap", WORK_SHAPE, KW_COLORMAP, 0),
+             ("placebo_veryslow", WORK_SHAPE_RF32, KW_MAIN, 0),
              ("l2_resident", (8,) + WORK_SHAPE[1:], KW_MAIN, 0),
              ("odd_sizes", (1, 30, 50, 3), KW_COLORMAP, 0), ("ragged", (1, 7, 11, 3), KW_MAIN, 0),
              ("misaligned", (2, 5, 7, 3), KW_COLORMAP, 1)]
@@ -351,7 +376,7 @@ def gray_clip_1080p() -> torch.Tensor:
     return y.clamp(0.0, 1.0).permute(0, 2, 3, 1).expand(t, h, w, 3).contiguous()
 
 
-def phase_main_path(ht, pc, card: str):
+def phase_main_path(ht, pc, wa, card: str):
     from havc_tpu_torch import engines
     from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
 
@@ -374,11 +399,12 @@ def phase_main_path(ht, pc, card: str):
     first_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    pc.post_chain_cuda.launches = 0
+    zero_launches(pc, wa)
     t0 = time.perf_counter()
     out = run()
     wall_s = time.perf_counter() - t0
-    launches = pc.post_chain_cuda.launches
+    by_kernel = read_launches(pc, wa)
+    launches = by_kernel["post_chain"]
     peak = torch.cuda.max_memory_allocated()
 
     # a third run with per-stage timing (each stage synchronizes the card)
@@ -409,17 +435,27 @@ def phase_main_path(ht, pc, card: str):
         fail("main_path: the post-chain kernel was not launched")
     if n_do < 2e8 or n_dd < 2e8:
         fail(f"main_path: models not at full width ({n_do}, {n_dd} parameters)")
-    return launches, frames, wall_s
+    return by_kernel, frames, wall_s
 
 
 # --- phase 4: where the device time goes ---------------------------------------------
 
 
-def phase_profile(path: str, run, wall_s, card: str, kernel: str) -> None:
+# the classic surface's filters by the PyTorch kernels they run: CLAHE
+# and the histograms count with scatter_add; MSRCP's quantiles and the
+# tweaks' percentiles sort; the box filters are cumulative sums; the LUT
+# and CLAHE lookups gather (index kernels)
+FILTER_KERNELS = {"scatter_add (histograms)": ("scatter",), "sort (quantiles)": ("sort", "Sort"),
+                  "cumsum (box filters)": ("scan", "Scan", "cumsum"),
+                  "gather (LUT, CLAHE lookups)": ("index", "gather")}
+
+
+def phase_profile(path: str, run, wall_s, card: str, kernel: str, groups=None) -> None:
     """One more run of a path under torch.profiler: the card's busy time
     (the union of its kernel intervals) against the run's wall time, the
-    device time summed per kernel, the kernels that take the most, and the
-    device time of the port's kernels whose names contain ``kernel``."""
+    device time summed per kernel, the kernels that take the most, the
+    device time of the port's kernels whose names contain ``kernel``, and
+    of each of ``groups`` (label -> name fragments)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,7 +485,168 @@ def phase_profile(path: str, run, wall_s, card: str, kernel: str) -> None:
                    for a in dev[:12]],
               kernel=kernel, kernel_s=sum(a.self_device_time_total for a in dev
                                           if kernel in a.key) * 1e-6,
-              kernel_launches={a.key[:60]: a.count for a in dev if kernel in a.key}))
+              kernel_launches={a.key[:60]: a.count for a in dev if kernel in a.key},
+              groups_s={label: sum(a.self_device_time_total for a in dev
+                                   if any(f in a.key for f in frags)) * 1e-6
+                        for label, frags in (groups or {}).items()}))
+
+
+# --- phases 10-13: the classic surface ------------------------------------------------
+
+BW_SHAPE = (8, 1080, 1920)
+PLACEBO_KW = dict(Preset="Placebo", ColorFix="Retinex/Red", BlackWhiteTune="Medium")
+VERYSLOW_KW = dict(Preset="VerySlow", ColorModel="Artistic+Siggraph17",
+                   CombMethod="Chroma-Retention", ColorFix="None", BlackWhiteTune="Light",
+                   BlackWhiteMode=4)
+BW_TUNE_LIMIT = 4e9  # bytes: no per-pixel 256-wide one-hot or LUT tensor
+
+
+def phase_bw_tune_memory(ht, card: str) -> None:
+    """HAVC_bw_tune on 8 frames of 1080p with the luma CLAHE (method 0) and
+    the per-channel CLAHE (method 2), before any model is on the card: the
+    peak device memory after a reset holds the input, the output and the
+    filter's temporaries only."""
+    frames = gray_clip_1080p()[:BW_SHAPE[0]].contiguous()
+    rows = []
+    for method in (0, 2):
+        run = lambda: ht.HAVC_bw_tune(ht.Clip(frames=frames), "Light", bw_method=method)  # noqa: E731,B023
+        timed(run)  # first call
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, wall_s = timed(run)
+        peak = torch.cuda.max_memory_allocated()
+        f = out.frames
+        rows.append(dict(bw_method=method, wall_s=wall_s, fps=BW_SHAPE[0] / wall_s,
+                         max_memory_allocated=peak, allocated_before=before,
+                         peak_over_before=peak - before,
+                         finite=bool(torch.isfinite(f).all().item()),
+                         mean_abs_change=float((f - frames).abs().mean().item())))
+        del out, f
+    emit(dict(phase="bw_tune_memory", card=card, clip=list(BW_SHAPE) + [3],
+              input_bytes=frames.numel() * 4, limit_bytes=BW_TUNE_LIMIT, runs=rows))
+    for r in rows:
+        if r["max_memory_allocated"] >= BW_TUNE_LIMIT or not r["finite"]:
+            fail(f"bw_tune_memory: method {r['bw_method']} peaked at "
+                 f"{r['max_memory_allocated']} B (limit {BW_TUNE_LIMIT:.0f}) or not finite")
+        if r["mean_abs_change"] <= 1e-4:
+            fail(f"bw_tune_memory: method {r['bw_method']} left the frames unchanged")
+
+
+def zero_launches(pc, wa) -> None:
+    pc.post_chain_cuda.launches = wa.window_attn_cuda.launches = 0
+
+
+def read_launches(pc, wa) -> dict:
+    return dict(post_chain=pc.post_chain_cuda.launches, window_attn=wa.window_attn_cuda.launches)
+
+
+def phase_classic_path(ht, pc, wa, card: str, name: str, kw: dict, want_post_chain: int):
+    """A classic-surface preset of ``HAVC_main`` on the main path's 1080p
+    clip with full-width engines: wall time of a second call, fps, peak
+    memory, per-stage times of a third, the kernels' launches."""
+    from havc_tpu_torch import engines
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    frames = gray_clip_1080p()
+
+    def run():
+        out = ht.HAVC_main(ht.Clip(frames=frames), **kw)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run()  # first call: engines made on the card, cuDNN algorithm selection
+    first_s = time.perf_counter() - t0
+    params = {"_".join(k[:2]): sum(p.numel() for p in m.parameters())
+              for k, m in engines.registry._cache.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(pc, wa)
+    t0 = time.perf_counter()
+    out = run()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches(pc, wa)
+    peak = torch.cuda.max_memory_allocated()
+
+    enable_profiling(True)
+    reset_stages()
+    t0 = time.perf_counter()
+    run()
+    profiled_s = time.perf_counter() - t0
+    enable_profiling(False)
+    stages = {k: v[0] for k, v in stage_times().items()}
+
+    f = out.frames
+    ok_shape = isinstance(f, torch.Tensor) and f.is_cuda and tuple(f.shape) == MAIN_SHAPE + (3,)
+    finite = bool(torch.isfinite(f).all().item())
+    lo, hi = f.min().item(), f.max().item()
+    chroma = (f - f.mean(-1, keepdim=True)).abs().mean().item()
+    emit(dict(phase=name, card=card, clip=list(MAIN_SHAPE) + [3], kwargs=kw, params=params,
+              first_call_s=first_s, wall_s=wall_s, fps=MAIN_SHAPE[0] / wall_s,
+              stage_timed_wall_s=profiled_s, stages_s=stages, max_memory_allocated=peak,
+              launches=launches, post_chain_launches=launches["post_chain"],
+              out_min=lo, out_max=hi, mean_abs_chroma=chroma))
+    if not ok_shape:
+        fail(f"{name}: output {type(f)} {tuple(f.shape)} is not a CUDA tensor of shape "
+             f"{MAIN_SHAPE + (3,)}")
+    if not finite or lo < 0.0 or hi > 1.0:
+        fail(f"{name}: output not finite in [0,1] (finite={finite}, min={lo}, max={hi})")
+    if launches["post_chain"] != want_post_chain:
+        fail(f"{name}: the post-chain kernel ran {launches['post_chain']} times, expected "
+             f"{want_post_chain}")
+    if chroma <= 1e-4:
+        fail(f"{name}: no chroma in the output")
+    return launches, run, wall_s
+
+
+def phase_streaming_tuned(ht, pc, wa, card: str, src: str, tmp: str):
+    """HAVC_main_streaming with BWTune and LUT on 72 frames of the
+    streaming phase's 1080p .y4m: both retune luma on the card, so the
+    download is i420; fps, host syncs per retired chunk, peak memory, and a
+    stage-timed run (``bw_tune`` is the BW tune; ``restore`` holds the
+    look)."""
+    from havc_tpu_torch import streaming
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    n_frames, chunk = 72, 64
+
+    def run():
+        return ht.HAVC_main_streaming(src, f"{tmp}/unused.mp4", BWTune="Light", LUT=2,
+                                      count=n_frames, chunk_size=chunk, sink="null")
+
+    first_n, first_s = timed(run)
+    zero_launches(pc, wa)
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(streaming) as rec:
+        (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
+    launches = read_launches(pc, wa)
+    peak = torch.cuda.max_memory_allocated()
+    transfer = streaming.last_transfer()
+    packed = rec.joined("packed")
+
+    enable_profiling(True)
+    reset_stages()
+    _, stage_timed_s = timed(run)
+    enable_profiling(False)
+    stages = {k: v[0] for k, v in stage_times().items()}
+    h, w = MAIN_SHAPE[1:]
+    chunks = -(-n_frames // chunk)
+    emit(dict(phase="streaming_tuned", card=card, clip=[n_frames, h, w], BWTune="Light", LUT=2,
+              stage_timed_wall_s=stage_timed_s, stages_s=stages,
+              first_call_s=first_s, frames=n, wall_s=wall_s, fps=n / wall_s, transfer=transfer,
+              host_syncs=sync_n, sync_sites=sync_sites, chunks=chunks,
+              host_syncs_per_chunk=sync_n / chunks, **rec.waits(), max_memory_allocated=peak,
+              launches=launches, out_shape=list(packed.shape),
+              out_y_range=[int(packed[:, :h].min()), int(packed[:, :h].max())],
+              **chroma_stats(packed[:, h:])))
+    if (first_n, n) != (n_frames, n_frames):
+        fail(f"streaming_tuned: frames written {first_n}, {n} != {n_frames}")
+    if transfer != "gray+i420" or tuple(packed.shape) != (n_frames, h * 3 // 2, w):
+        fail(f"streaming_tuned: transfer {transfer}, packed shape {packed.shape}")
+    if sync_n > chunks + 1:
+        fail(f"streaming_tuned: {sync_n} host syncs over {chunks} chunks")
+    return run, wall_s, launches
 
 
 # --- phase 5: the exemplar path at full width -----------------------------------------
@@ -484,7 +681,7 @@ def scene_clip_1080p(seed: int = 5) -> np.ndarray:
     return np.repeat(y[..., None], 3, axis=-1)
 
 
-def phase_exemplar_path(ht, wa, card: str):
+def phase_exemplar_path(ht, pc, wa, card: str):
     from havc_tpu_torch import exemplar
     from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
 
@@ -500,11 +697,12 @@ def phase_exemplar_path(ht, wa, card: str):
     first_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    wa.window_attn_cuda.launches = 0
+    zero_launches(pc, wa)
     t0 = time.perf_counter()
     out = run()
     wall_s = time.perf_counter() - t0
-    launches = wa.window_attn_cuda.launches
+    by_kernel = read_launches(pc, wa)
+    launches = by_kernel["window_attn"]
     peak = torch.cuda.max_memory_allocated()
 
     enable_profiling(True)
@@ -544,7 +742,7 @@ def phase_exemplar_path(ht, wa, card: str):
     if launches < MAIN_SHAPE[0] - len(EX_CUTS):
         fail(f"exemplar_path: window attention launched {launches} times, expected at least "
              f"{MAIN_SHAPE[0] - len(EX_CUTS)}")
-    return launches, run, wall_s
+    return by_kernel, run, wall_s
 
 
 def phase_exemplar_memory(card: str) -> None:
@@ -602,19 +800,23 @@ def phase_exemplar_memory(card: str) -> None:
 
 
 def tiny_engines(device_list):
-    """DeOldifyWide("nano", nf_factor 1), DDColor "micro" and ColorMNet
-    "micro" with seeded weights (BatchNorm statistics and gates moved off
+    """DeOldifyWide("nano", nf_factor 1), DDColor "micro", ColorMNet
+    "micro", DeOldifyDeep("nano", nf_factor 1.5) and Zhang Siggraph17 at
+    width 8 with seeded weights (BatchNorm statistics and gates moved off
     their init values), one copy per device."""
     from havc_tpu_torch.models import colormnet as tcm
     from havc_tpu_torch.models import ddcolor as tdd
     from havc_tpu_torch.models import deoldify as tdo
+    from havc_tpu_torch.models import zhang as tzh
     from havc_tpu_torch.models.layers import BatchNormInference, init_flax_defaults
 
     gen = torch.Generator().manual_seed(3)
     models = {}
     for key, m in ((("deoldify", "video"), tdo.DeOldifyWide("nano", nf_factor=1)),
                    (("ddcolor", "artistic"), tdd.DDColor.from_config("micro")),
-                   (("colormnet", "micro"), tcm.ColorMNet("micro"))):
+                   (("colormnet", "micro"), tcm.ColorMNet("micro")),
+                   (("deoldify", "artistic"), tdo.DeOldifyDeep("nano", nf_factor=1.5)),
+                   (("zhang", "siggraph17"), tzh.Siggraph17(width=8))):
         init_flax_defaults(m, gen)
         with torch.no_grad():
             for mod in m.modules():
@@ -642,6 +844,16 @@ def two_scene_clip() -> np.ndarray:
     return np.repeat(y[..., None], 3, axis=-1)
 
 
+def classic_test_clip() -> np.ndarray:
+    """6 gray 136x240 frames (the Placebo tiles overlap: 2x2 tiles of
+    100x152): a drifting smooth field with fine noise."""
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:136, 0:240].astype(np.float32)
+    y = np.stack([0.5 + 0.3 * np.sin(xx / 23.0 + i / 4.0) * np.cos(yy / 17.0) for i in range(6)])
+    y = np.clip(y[..., None] + 0.05 * rng.random((6, 136, 240, 1)), 0, 1).astype(np.float32)
+    return np.repeat(y, 3, axis=-1)
+
+
 def phase_parity(ht) -> None:
     from havc_tpu_torch import engines, exemplar
 
@@ -656,7 +868,9 @@ def phase_parity(ht) -> None:
     try:
         y = np.random.default_rng(7).random((6, 48, 64, 1), dtype=np.float32)
         cases = [("main_path", np.repeat(y, 3, axis=-1), {}),
-                 ("exemplar_path", two_scene_clip(), dict(EnableDeepEx=True))]
+                 ("exemplar_path", two_scene_clip(), dict(EnableDeepEx=True)),
+                 ("placebo", classic_test_clip(), PLACEBO_KW),
+                 ("veryslow", classic_test_clip(), VERYSLOW_KW)]
         for name, frames, kw in cases:
             out_cpu = ht.HAVC_main(ht.Clip(frames=frames.copy()), batch_size=4, device="cpu",
                                    **kw).frames
@@ -804,11 +1018,11 @@ def phase_streaming(ht, pc, wa, card: str, tmp: str, has_cv2: bool):
 
     # the second call, every frame with its transfers; the kernel counts
     # are zeroed just before it and read just after
-    pc.post_chain_cuda.launches = wa.window_attn_cuda.launches = 0
+    zero_launches(pc, wa)
     torch.cuda.reset_peak_memory_stats()
     with Recorder(streaming, keep_bytes=False) as rec:
         (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(lambda: run()))
-    launches = dict(post_chain=pc.post_chain_cuda.launches, window_attn=wa.window_attn_cuda.launches)
+    launches = read_launches(pc, wa)
     transfer = streaming.last_transfer()
     peak_136 = torch.cuda.max_memory_allocated()
     waits = rec.waits()
@@ -908,22 +1122,25 @@ def phase_streaming_parity(tmp: str) -> None:
     engines.make_ddcolor_fn = lambda model=1, render_factor=24, **kw: real_dd(model, 4, **kw)
     try:
         outs = {}
-        for dev in ("cpu", None):
-            with Recorder(streaming) as rec:
-                streaming.HAVC_main_streaming(src, "unused.mp4", chunk_size=16, sink="null",
-                                              device=dev)
-            outs[dev] = (rec.joined("packed"), rec.joined("y"))
+        for name, kw in (("streaming", {}), ("streaming_tuned", dict(BWTune="Light", LUT=2))):
+            for dev in ("cpu", None):
+                with Recorder(streaming) as rec:
+                    streaming.HAVC_main_streaming(src, "unused.mp4", chunk_size=16, sink="null",
+                                                  device=dev, **kw)
+                outs[name, dev] = (rec.joined("packed"), rec.y and rec.joined("y"))
     finally:
         engines.registry._cache.clear()
         engines.registry._cache.update(saved)
         engines.make_deoldify_fn, engines.make_ddcolor_fn = real_do, real_dd
-    diff = np.abs(outs["cpu"][0] - outs[None][0])
-    y_equal = bool(np.array_equal(outs["cpu"][1], outs[None][1]))
-    emit(dict(phase="parity_cpu_gpu", path="streaming", clip=[40, 48, 64],
-              max_abs_code_diff=int(diff.max()), unequal_share=float(np.mean(diff > 0)),
-              y_planes_equal=y_equal, tol_codes=1))
-    if diff.max() > 1 or not y_equal:
-        fail(f"parity_cpu_gpu streaming: max code diff {diff.max()}, Y planes equal {y_equal}")
+    for name in ("streaming", "streaming_tuned"):
+        (p_cpu, y_cpu), (p_gpu, y_gpu) = outs[name, "cpu"], outs[name, None]
+        diff = np.abs(p_cpu - p_gpu)
+        y_equal = bool(np.array_equal(y_cpu, y_gpu))  # uv420: the host's Y planes
+        emit(dict(phase="parity_cpu_gpu", path=name, clip=[40, 48, 64],
+                  packed_shape=list(p_gpu.shape), max_abs_code_diff=int(diff.max()),
+                  unequal_share=float(np.mean(diff > 0)), y_planes_equal=y_equal, tol_codes=1))
+        if diff.max() > 1 or not y_equal:
+            fail(f"parity_cpu_gpu {name}: max code diff {diff.max()}, Y planes equal {y_equal}")
 
 
 def restore_chroma(i: int, h: int, w: int):
@@ -938,7 +1155,7 @@ def restore_chroma(i: int, h: int, w: int):
     return u, v
 
 
-def phase_restore_streaming(wa, card: str, tmp: str):
+def phase_restore_streaming(pc, wa, card: str, tmp: str):
     from havc_tpu_torch import exemplar, streaming
     from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
 
@@ -967,10 +1184,11 @@ def phase_restore_streaming(wa, card: str, tmp: str):
         exemplar.colormnet_propagate = real_propagate
     cuts = np.nonzero(np.concatenate(flags))[0].tolist()
 
-    wa.window_attn_cuda.launches = 0
+    zero_launches(pc, wa)
     torch.cuda.reset_peak_memory_stats()
     (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
-    launches = wa.window_attn_cuda.launches
+    by_kernel = read_launches(pc, wa)
+    launches = by_kernel["window_attn"]
     peak = torch.cuda.max_memory_allocated()
     transfer = streaming.last_transfer()
 
@@ -1005,7 +1223,7 @@ def phase_restore_streaming(wa, card: str, tmp: str):
         fail(f"restore_streaming: chunk 16 and chunk 48 differ by {diff.max()} codes")
     if chroma_stats(uv16)["mean_abs_uv_minus_128"] <= 1.0:
         fail("restore_streaming: no chroma came through from the reference")
-    return run, wall_s, launches
+    return run, wall_s, by_kernel
 
 
 def main() -> None:
@@ -1042,26 +1260,42 @@ def main() -> None:
                              torch.cuda.get_device_properties(0).multi_processor_count,
                              smi_max_sm_clock_hz()),
                phase_window_attn(wa, smi)]
-    launches, frames, wall_s = phase_main_path(ht, pc, smi)
-    summary[0]["launches"] = launches
+    by_path = {}  # path -> {kernel: launches in that path's measured run}
+    # before any model is on the card, so its peak is the filter's own
+    phase_bw_tune_memory(ht, smi)
+    by_path["main_path"], frames, wall_s = phase_main_path(ht, pc, wa, smi)
     phase_profile("main_path", lambda: ht.HAVC_main(ht.Clip(frames=frames)), wall_s, smi,
-                  "post_chain")
+                  "post_chain", FILTER_KERNELS)
     del frames
-    summary[1]["launches"], run_exemplar, ex_wall_s = phase_exemplar_path(ht, wa, smi)
+    for name, kw, want in (("placebo_path", PLACEBO_KW, 1), ("veryslow_path", VERYSLOW_KW, 2)):
+        by_path[name], run_classic, cl_wall_s = phase_classic_path(ht, pc, wa, smi, name, kw, want)
+        phase_profile(name, run_classic, cl_wall_s, smi, "post_chain", FILTER_KERNELS)
+        del run_classic
+    by_path["exemplar_path"], run_exemplar, ex_wall_s = phase_exemplar_path(ht, pc, wa, smi)
     phase_profile("exemplar_path", run_exemplar, ex_wall_s, smi, "window_attn")
     del run_exemplar
     phase_exemplar_memory(smi)
     phase_parity(ht)
     has_cv2 = importlib.util.find_spec("cv2") is not None
     with tempfile.TemporaryDirectory() as tmp:
-        run_stream, st_wall_s, _ = phase_streaming(ht, pc, wa, smi, tmp, has_cv2)
+        run_stream, st_wall_s, by_path["streaming"] = phase_streaming(ht, pc, wa, smi, tmp,
+                                                                      has_cv2)
         phase_profile("streaming", run_stream, st_wall_s, smi, "post_chain")
         del run_stream
+        _, _, by_path["streaming_tuned"] = phase_streaming_tuned(
+            ht, pc, wa, smi, f"{tmp}/stream_gray.y4m", tmp)
         phase_streaming_parity(tmp)
-        run_restore, rs_wall_s, _ = phase_restore_streaming(wa, smi, tmp)
+        run_restore, rs_wall_s, by_path["restore_streaming"] = phase_restore_streaming(
+            pc, wa, smi, tmp)
         phase_profile("restore_streaming", run_restore, rs_wall_s, smi, "window_attn")
         del run_restore
 
+    # `launches`: each kernel's slice's own path (the post chain: HAVC_main
+    # with its defaults; window attention: the exemplar path), in calls
+    summary[0]["launches"] = by_path["main_path"]["post_chain"]
+    summary[1]["launches"] = by_path["exemplar_path"]["window_attn"]
+    for row in summary:
+        row["launches_by_path"] = {p: k[row["name"]] for p, k in by_path.items()}
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

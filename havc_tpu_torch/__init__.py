@@ -1,10 +1,14 @@
 """havc_tpu_torch — the PyTorch/CUDA port of havc_tpu.
 
-The main path, ``HAVC_main(clip)`` with its defaults, the ColorMNet
+``HAVC_main(clip)`` with its whole classic surface (every preset,
+Placebo and VerySlow included, every ColorModel with DeOldify Video,
+Stable and Artistic, DDColor and Zhang, every CombMethod, ColorFix,
+ColorTune, ColorMap and BlackWhiteTune), the filters (``HAVC_bw_tune``,
+``HAVC_TimeCube``, ``HAVC_retinex``, ``HAVC_merge``, ...), the ColorMNet
 exemplar path, ``HAVC_main(clip, EnableDeepEx=True)``, and the
-bounded-memory streaming paths (``HAVC_main_streaming``,
-``streaming.HAVC_restore_video_streaming`` with ColorMNet) run on an NVIDIA
-GPU: plain tensor code in PyTorch, and the TPU kernels rewritten in CUDA
+bounded-memory streaming paths (``HAVC_main_streaming`` with BWTune and
+LUT, ``streaming.HAVC_restore_video_streaming`` with ColorMNet) run on an
+NVIDIA GPU: plain tensor code in PyTorch, and the TPU kernels rewritten in CUDA
 C++ for Hopper (``csrc/post_chain.cu``, the fused post chain;
 ``csrc/window_attn.cu``, ColorMNet's local window attention), built with
 ``nvcc`` at first use.  Entry points run on ``cuda`` unless the caller

@@ -1,14 +1,26 @@
-"""Public HAVC_* entry points of the main path, on :class:`Clip`.
+"""Public HAVC_* entry points, on :class:`Clip`.
 
-Port of ``havc_tpu.api`` for ``HAVC_main`` (speed ids 2-7) ->
-``HAVC_main_presets`` -> ``HAVC_main_colorizer``: the classic branch
-(``HAVC_colorizer``: work resize, DeOldify and DDColor, merge, chroma
-restore; ``HAVC_stabilizer``: fused post-chain kernel or the filter
-chain, temporal chroma stabilizer, deflicker, chroma restore) and the
-DeepEx branch for methods 0/1/2 (``HAVC_colorizer`` with scene detection
-makes the reference frames, ``exemplar.HAVC_deepex`` propagates them with
-ColorMNet, then the fast stabilizer settings).  Parameter names, packs
-and defaults are the JAX package's.
+Port of ``havc_tpu.api``:
+
+* ``HAVC_main`` for every preset: Placebo -> ``HAVC_placebo_preset`` (2x2
+  overlapping tiles), VerySlow -> ``HAVC_veryslow_preset`` (two darkened
+  passes merged), the rest -> ``HAVC_main_presets`` (BlackWhiteTune pre-
+  and post-passes, the Retinex/Red film LUT, ``lut``, deflicker) ->
+  ``HAVC_main_colorizer``: the classic branch (``HAVC_colorizer``: work
+  resize, DeOldify and DDColor or Zhang, merge methods 0-7, chroma
+  restore; ``HAVC_stabilizer``: fused post-chain kernel or the filter
+  chain, temporal chroma stabilizer, deflicker, chroma restore) and the
+  DeepEx branch for methods 0/1/2 (``HAVC_colorizer`` with scene detection
+  makes the reference frames, ``exemplar.HAVC_deepex`` propagates them
+  with ColorMNet, then the fast stabilizer settings);
+* the filters: ``HAVC_merge``, ``HAVC_bw_tune``, ``HAVC_auto_levels``,
+  ``HAVC_retinex``, ``HAVC_rgb_denoise``, ``HAVC_adjust_rgb``,
+  ``HAVC_tweak``, ``HAVC_TimeCube``, ``HAVC_recover_clip_color``,
+  ``HAVC_ColorAdjust``, ``HAVC_main_restore`` (its BlackWhiteTune part),
+  the tiles (``HAVC_clip_slice``, ``HAVC_clip_reconstruct``) and the
+  parameter setters.
+
+Parameter names, packs and defaults are the JAX package's.
 
 Every entry point takes ``device``: ``None`` means CUDA and raises when
 there is none; ``device="cpu"`` runs on the CPU.  A clip of numpy frames
@@ -27,8 +39,11 @@ import torch
 from . import engines, filters, presets
 from .clip import Clip
 from .ops import chroma as chroma_ops
+from .ops import equalize, lut3d
 from .ops import merge as merge_ops
+from .ops import retinex as retinex_ops
 from .ops import temporal as temporal_ops
+from .ops import tiles as tiles_ops
 from .ops.post_chain import post_chain
 from .ops.resize import resize
 from .scene.detect import scene_detect
@@ -40,7 +55,27 @@ __all__ = [
     "HAVC_main_colorizer",
     "HAVC_colorizer",
     "HAVC_stabilizer",
+    "HAVC_placebo_preset",
+    "HAVC_veryslow_preset",
+    "HAVC_merge",
+    "HAVC_bw_tune",
+    "HAVC_auto_levels",
+    "HAVC_retinex",
+    "HAVC_rgb_denoise",
+    "HAVC_adjust_rgb",
+    "HAVC_tweak",
+    "HAVC_TimeCube",
+    "HAVC_clip_slice",
+    "HAVC_clip_reconstruct",
+    "HAVC_recover_clip_color",
+    "HAVC_main_restore",
+    "HAVC_ColorAdjust",
+    "HAVC_set_tweak_params",
+    "HAVC_set_merge_params",
     "HAVC_set_debug_level",
+    "ClipTiles",
+    "bw_tune_frames",
+    "auto_levels_frames",
     "DEF_TWEAK_p",
 ]
 
@@ -67,6 +102,26 @@ def _not_ported(what: str, item: str):
 def _on(clip: Clip, dev: torch.device):
     """(clip as a tensor on ``dev``, whether to hand numpy back)."""
     return clip.to_device(dev), not clip.on_device
+
+
+@torch.inference_mode()
+def _map(clip: Clip, fn, batch_size: int, dev: torch.device) -> Clip:
+    """``fn`` over the clip's frames in batches on ``dev``; the result
+    lives where the input did."""
+    c, to_host = _on(clip, dev)
+    out = c.map_batches(fn, batch_size)
+    return out.to_host() if to_host else out
+
+
+@torch.inference_mode()
+def _map2(clipa: Clip, clipb: Clip, fn, batch_size: int, dev: torch.device) -> Clip:
+    """``fn(a, b)`` over batches of two clips of one length on ``dev``; the
+    result takes ``clipa``'s metadata and residency."""
+    a, to_host = _on(clipa, dev)
+    b = clipb.to_device(dev).frames
+    out = a.with_frames(torch.cat([fn(a.frames[s:s + batch_size], b[s:s + batch_size])
+                                   for s in range(0, a.num_frames, batch_size)], dim=0))
+    return out.to_host() if to_host else out
 
 
 # --------------------------------------------------------------------------
@@ -216,12 +271,8 @@ def _colorize_fused(
 def _chroma_resize_clip(hires: Clip, lowres: Clip, batch_size: int = 8) -> Clip:
     """Spline64 chroma restore of ``lowres`` onto ``hires``'s luma, batch
     by batch; both clips hold tensors on one device."""
-    outs = [
-        filters.chroma_resize_restore(hires.frames[s:s + batch_size],
-                                      lowres.frames[s:s + batch_size])
-        for s in range(0, hires.num_frames, batch_size)
-    ]
-    return hires.with_frames(torch.cat(outs, dim=0)).copy_sc_from(lowres)
+    return _map2(hires, lowres, filters.chroma_resize_restore, batch_size,
+                 hires.frames.device).copy_sc_from(lowres)
 
 
 # --------------------------------------------------------------------------
@@ -335,6 +386,390 @@ def HAVC_stabilizer(
 
 
 # --------------------------------------------------------------------------
+# merge / tune / misc public utilities
+# --------------------------------------------------------------------------
+
+
+def HAVC_merge(
+    clipa: Clip = None,
+    clipb: Optional[Clip] = None,
+    clip_luma: Optional[Clip] = None,
+    weight: float = 0.5,
+    method: int = 2,
+    cmc_p=DEF_CMC_p,
+    lmm_p=DEF_LMM_p,
+    alm_p=DEF_ALM_p,
+    crt_p=DEF_CRT_p,
+    cmb_sw: bool = False,
+    mweight: Optional[float] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Combine two colorized clips: ``method`` 0/1 return clipa/clipb,
+    2-7 the merge methods with ``weight`` the weight of clipb.  With
+    ``clip_luma`` the result takes its luma (and its metadata).
+    ``mweight`` is a legacy alias of weight."""
+    if clipa is None:
+        raise ValueError("HAVC_merge: clipa is required")
+    if mweight is not None:
+        weight = mweight
+    dev = resolve_device(device)
+
+    def _with_luma(c: Clip) -> Clip:
+        if clip_luma is None:
+            return c
+        return _map2(clip_luma, c, filters.recover_clip_luma, batch_size, dev)
+
+    if method == 0 or clipb is None:
+        return _with_luma(clipa)
+    if method == 1:
+        return _with_luma(clipb)
+    merged = _map2(clipa, clipb, lambda a, b: merge_ops.combine_models(
+        a, b, method=method, b_weight=weight, cmc_p=cmc_p, lmm_p=lmm_p, alm_p=alm_p,
+        crt_p=crt_p, invert_clips=cmb_sw), batch_size, dev)
+    return _with_luma(merged)
+
+
+def _lim(v):
+    return v * (219.0 / 255.0) + 16.0 / 255.0
+
+
+def _unlim(v):
+    return (v - 16.0 / 255.0) * (255.0 / 219.0)
+
+
+def bw_tune_frames(
+    x: torch.Tensor,
+    tn_id: int,
+    method: int = 0,
+    luma_blend: bool = True,
+    range_tv: bool = True,
+) -> torch.Tensor:
+    """Per-frame core of HAVC_bw_tune: the strength tables of each tune
+    level, ``rgb_balance`` with the per-channel warm-up factors (skipped
+    for ScaleAbs/Retinex), then the equalizer, inside the reference's
+    full->limited range bracket (the codes are compressed twice on entry
+    and expanded twice on exit, as the reference does)."""
+    b_strength = [0.0, 0.30, 0.40, 0.50]
+    w_strength = [0.0, 0.30, 0.40, 0.50]
+    r_factor = [1.0, 0.96, 0.94, 0.92]
+    g_factor = [1.0, 1.03, 1.05, 1.08]
+    b_factor = [1.0, 1.0, 1.0, 1.0]
+    method = min(5, method)
+    if method == 5:
+        b_strength = [0.0, 0.98, 0.99, 1.0]
+    weight3 = float(tn_id) if method == 4 else w_strength[tn_id]
+    if range_tv:
+        x = _lim(_lim(x))
+    if method < 4:
+        x = equalize.rgb_balance(
+            x, strength=w_strength[tn_id],
+            rgb_factor=(r_factor[tn_id], g_factor[tn_id], b_factor[tn_id]),
+        )
+    x = equalize.rgb_equalizer(x, method=method, strength=b_strength[tn_id], weight3=weight3,
+                               luma_blend_on=luma_blend)
+    if range_tv:
+        x = torch.clamp(_unlim(_unlim(x)), 0.0, 1.0)
+    return x
+
+
+def HAVC_bw_tune(
+    clip: Clip = None,
+    bw_tune: str = "Light",
+    bw_method: int = 0,
+    luma_blend: bool = True,
+    range_tv: bool = True,
+    chroma_resize: bool = False,
+    batch_size: int = 8,
+    method: Optional[int] = None,
+    device=None,
+) -> Clip:
+    """B&W contrast/luminosity restoration.  ``chroma_resize=True`` runs
+    the filter at a reduced square size and marries the original luma
+    back.  ``method`` is a deprecated alias of ``bw_method``."""
+    if clip is None:
+        raise ValueError("HAVC_bw_tune: clip is required")
+    if method is not None:
+        bw_method = method
+    tn_id = presets.get_tune_id(bw_tune)
+    if tn_id == 0:
+        return clip
+    dev = resolve_device(device)
+    work, to_host = _on(clip, dev)
+    full = work
+    resized = False
+    if chroma_resize:
+        rf = min(max(int(0.4 * clip.width / 16), 16), 48)
+        frame_size = min(rf * 16, clip.width)
+        if frame_size < clip.width:
+            work = _map(work, lambda x: resize(x, frame_size, frame_size, "spline64"),
+                        batch_size, dev)
+            resized = True
+    out = _map(work, lambda x: bw_tune_frames(x, tn_id, bw_method, luma_blend, range_tv),
+               batch_size, dev)
+    if resized:
+        out = _chroma_resize_clip(full, out, batch_size)
+    return out.to_host() if to_host else out
+
+
+def auto_levels_frames(
+    x: torch.Tensor,
+    tn_id: int,
+    method: int = 0,
+    luma_blend: bool = False,
+    range_tv: bool = True,
+) -> torch.Tensor:
+    """Per-frame core of HAVC_auto_levels: no white-balance step, the
+    strength table [0, 0.98, 0.99, 1.0] for every method, inside the same
+    double full->limited range bracket."""
+    b_strength = [0.0, 0.98, 0.99, 1.0]
+    if range_tv:
+        x = _lim(_lim(x))
+    x = equalize.rgb_equalizer(x, method=min(5, method), strength=b_strength[tn_id],
+                               luma_blend_on=luma_blend)
+    if range_tv:
+        x = torch.clamp(_unlim(_unlim(x)), 0.0, 1.0)
+    return x
+
+
+def HAVC_auto_levels(
+    clip: Clip = None, mode: str = "Light", method: int = 0,
+    luma_blend: bool = False, range_tv: bool = True, batch_size: int = 8, device=None,
+) -> Clip:
+    """Histogram-equalization / retinex contrast filter for B&W clips."""
+    if clip is None:
+        raise ValueError("HAVC_auto_levels: clip is required")
+    tn_id = presets.get_tune_id(mode)
+    if tn_id == 0:
+        return clip
+    return _map(clip, lambda x: auto_levels_frames(x, tn_id, method, luma_blend, range_tv),
+                batch_size, resolve_device(device))
+
+
+def HAVC_retinex(
+    clip: Clip,
+    luma_dark: float = 0.20,
+    luma_bright: float = 0.80,
+    sigmas=(25.0, 80.0, 250.0),
+    range_tv_in: bool = True,
+    range_tv_out: bool = True,
+    blend: bool = False,
+    chroma_resize: bool = False,
+    fast_mode: bool = True,
+    batch_size: int = 4,
+    strength: Optional[float] = None,
+    device=None,
+) -> Clip:
+    """MSRCP retinex on the frames whose mean luma lies in [luma_dark,
+    luma_bright] (the others pass through), with an optional dark-frame
+    blend.  ``strength`` (older scripts) instead mixes MSRCP with the
+    input at that weight."""
+    dev = resolve_device(device)
+    if strength is not None:
+        return _map(clip, lambda x: x * (1 - strength) + retinex_ops.msrcp_rgb(x, sigmas)
+                    * strength, batch_size, dev)
+    return _map(clip, lambda x: retinex_ops.retinex_filter(
+        x, luma_dark=luma_dark, luma_bright=luma_bright, sigmas=sigmas, range_tv=range_tv_in,
+        blend=blend, fast_mode=fast_mode), batch_size, dev)
+
+
+def HAVC_rgb_denoise(
+    clip: Clip,
+    denoise_levels=(0.4, 0.3),
+    rgb_factors=(0.95, 1.05, 1.01),
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Color/contrast denoise for DDColor/Zhang output: white balance at
+    ``denoise_levels[0]`` with ``rgb_factors``, luma CLAHE at
+    ``denoise_levels[1]``, inside the double range bracket."""
+    w_str, b_str = float(denoise_levels[0]), float(denoise_levels[1])
+    r, g, b = (float(v) for v in rgb_factors)
+
+    def apply(x):
+        x = _lim(_lim(x))
+        x = equalize.rgb_balance(x, strength=w_str, rgb_factor=(r, g, b))
+        x = equalize.rgb_equalizer(x, method=0, strength=b_str, luma_blend_on=False)
+        return torch.clamp(_unlim(_unlim(x)), 0.0, 1.0)
+
+    return _map(clip, apply, batch_size, resolve_device(device))
+
+
+def HAVC_adjust_rgb(
+    clip: Clip = None, strength: float = 0.0, factor=(1.0, 1.0, 1.0),
+    bias=(0, 0, 0), gamma=(1.0, 1.0, 1.0), batch_size: int = 8, device=None,
+) -> Clip:
+    """Per-channel gain/bias/gamma after an optional white-balance pass at
+    ``strength``."""
+    if clip is None:
+        raise ValueError("HAVC_adjust_rgb: clip is required")
+
+    def apply(x):
+        if strength > 0:
+            x = equalize.rgb_balance(x, strength=min(strength, 1.0))
+        return equalize.adjust_rgb(x, factor, bias, gamma)
+
+    return _map(clip, apply, batch_size, resolve_device(device))
+
+
+def HAVC_tweak(
+    clip: Clip = None, hue: float = 0, sat: float = 1, bright: float = 0,
+    cont: float = 1, gamma: float = 1, batch_size: int = 8, device=None,
+) -> Clip:
+    """Hue, saturation, brightness, contrast and gamma tweak."""
+    if clip is None:
+        raise ValueError("HAVC_tweak: clip is required")
+    return _map(clip, lambda x: chroma_ops.tweak(x, hue=hue, sat=sat, bright=bright, cont=cont,
+                                                 gamma=gamma), batch_size, resolve_device(device))
+
+
+def HAVC_TimeCube(
+    clip: Clip,
+    strength: float = 1.0,
+    lut_effect: int | str = 0,
+    factors=None,
+    lut: Optional[int | str] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """3D-LUT film look: a built-in look (id or name) or a user ``.cube``
+    file, the per-look (hue, sat, bright, cont, gamma) tweak, then a merge
+    with the input at ``strength`` (look 8, Amber_Light, through the
+    ChromaBound merge, method 7; the others a weighted merge).
+    ``factors`` overrides the tweak (bright on the 0..255 scale); ``lut``
+    is a legacy alias of lut_effect."""
+    if lut is not None:
+        lut_effect = lut
+    if strength == 0:
+        return clip
+    if isinstance(lut_effect, str) and lut_effect.endswith(".cube"):
+        table, lut_id, tweaks = lut3d.load_cube(lut_effect), -1, None
+    else:
+        table = lut3d.make_look_lut(lut_effect)
+        lut_id = lut_effect if isinstance(lut_effect, int) else lut3d.LUT_NAMES.index(lut_effect)
+        tweaks = lut3d.LUT_TWEAKS.get(lut_id)
+    if factors is not None:
+        tweaks = tuple(factors)
+    dev = resolve_device(device)
+    tbl = lut3d.lattice_on(table, dev)
+
+    def apply(x):
+        out = lut3d.apply_lut3d(x, tbl)
+        if tweaks is not None:
+            hue, sat, bright, cont, gamma = tweaks
+            out = chroma_ops.tweak(out, hue=hue, sat=sat, bright=bright / 255.0, cont=cont,
+                                   gamma=gamma)
+        if strength < 1.0:
+            if lut_id == 8:
+                out = merge_ops.combine_models(x, out, method=7, b_weight=strength,
+                                               cmc_p=(0.15, True, 25, 25))
+            else:
+                out = x * (1.0 - strength) + out * strength
+        return out
+
+    return _map(clip, apply, batch_size, dev)
+
+
+class ClipTiles:
+    """Overlapping tiles of a clip: the original clip, the tiles stacked on
+    the batch axis (tile-major) and the geometry to reconstruct it."""
+
+    def __init__(self, clip_orig: Clip, tiles_clip: Clip, meta: dict,
+                 overlap_x: int, overlap_y: int):
+        self.clip_orig = clip_orig
+        self.tiles_clip = tiles_clip
+        self.meta = meta
+        self.original_width = clip_orig.width
+        self.original_height = clip_orig.height
+        self.base_tile_w = meta["tw"]
+        self.base_tile_h = meta["th"]
+        self.overlap_x = overlap_x
+        self.overlap_y = overlap_y
+
+    @property
+    def tiles(self) -> list:
+        """Per-tile clips in order ([tl, tr] or [tl, tr, bl, br])."""
+        t = self.meta["shape"][0]
+        frames = self.tiles_clip.frames
+        return [self.tiles_clip.with_frames(frames[i * t:(i + 1) * t]) for i in range(len(self))]
+
+    def with_tiles(self, tiles_clip: Clip) -> "ClipTiles":
+        """The same geometry with processed tile frames."""
+        return ClipTiles(self.clip_orig, tiles_clip, self.meta, self.overlap_x, self.overlap_y)
+
+    def __len__(self):
+        return len(self.meta["ys"]) * len(self.meta["xs"])
+
+
+@torch.inference_mode()
+def HAVC_clip_slice(
+    clip: Clip, slices: int = 2, overlap_x: int = 32, overlap_y: int = 32, device=None,
+) -> ClipTiles:
+    """Overlapping tiles: ``slices=2`` two side by side (overlap_x only),
+    ``slices=4`` a 2x2 grid.  The tiles stack on the batch axis, so the
+    colorizer sees one 2x/4x larger batch."""
+    if slices == 4:
+        rows, cols = 2, 2
+    elif slices == 2:
+        rows, cols = 1, 2
+    else:
+        raise ValueError("HAVC_clip_slice: slices must be 2 or 4")
+    c, to_host = _on(clip, resolve_device(device))
+    tiles, meta = tiles_ops.slice_tiles(c.frames, rows, cols, overlap_x, overlap_y=overlap_y)
+    tiles_clip = Clip(frames=tiles.cpu().numpy() if to_host else tiles, fps=clip.fps)
+    return ClipTiles(clip, tiles_clip, meta, overlap_x, overlap_y if slices == 4 else 0)
+
+
+@torch.inference_mode()
+def HAVC_clip_reconstruct(
+    clip_tiles: ClipTiles, blend_weight: float = 0.5, chroma_resize: bool = False, device=None,
+) -> Clip:
+    """Blend the tiles back to the original geometry with linear ramps over
+    the overlaps; ``chroma_resize=True`` marries the original clip's luma to
+    the blended chroma.  ``blend_weight`` is accepted for parity: the ramp
+    blend is always used."""
+    del blend_weight
+    dev = resolve_device(device)
+    clip, to_host = _on(clip_tiles.clip_orig, dev)
+    rec = tiles_ops.reconstruct_tiles(clip_tiles.tiles_clip.to_device(dev).frames,
+                                      clip_tiles.meta,
+                                      recover_luma=clip.frames if chroma_resize else None)
+    out = clip.with_frames(rec)
+    return out.to_host() if to_host else out
+
+
+def HAVC_recover_clip_color(
+    clip: Clip = None,
+    clip_color: Clip = None,
+    sat: float = 0.8,
+    tht: int = 30,
+    strength: float = 1.0,
+    alpha: float = 2.0,
+    mask_weight: float = 1.0,
+    chroma_resize: bool = True,
+    return_mask: bool = False,
+    binary_mask: bool = False,
+    algo: int = 0,
+    weight: Optional[float] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Restore the colors of the gray pixels of ``clip`` from
+    ``clip_color`` (the ChromaRetention merge): ``strength`` is the filter
+    weight, ``mask_weight`` the masked-donor blend weight,
+    ``return_mask=True`` returns the gray-pixel mask.  ``weight`` is a
+    deprecated alias of ``mask_weight``."""
+    if clip is None or clip_color is None:
+        raise ValueError("HAVC_recover_clip_color: clip and clip_color are required")
+    if weight is not None:
+        mask_weight = weight
+    return _map2(clip, clip_color, lambda a, b: merge_ops.chroma_retention_merge(
+        a, b, sat=sat, tht=tht, b_weight=strength, alpha=alpha, mask_weight=mask_weight,
+        chroma_resize=chroma_resize, binary_mask=binary_mask, algo=algo,
+        return_mask=return_mask), batch_size, resolve_device(device))
+
+
+# --------------------------------------------------------------------------
 # HAVC_main_colorizer / HAVC_main_presets / HAVC_main
 # --------------------------------------------------------------------------
 
@@ -390,13 +825,14 @@ def HAVC_main_colorizer(
     batch_size: int = 8,
     device=None,
 ) -> Clip:
-    """Main HAVC coloring function.  Classic path: HAVC_colorizer, then
-    the speed-tier stabilizer settings (colormap only for the fast
-    presets; dark + smooth + colormap + stab for slower / slow / medium).
+    """Main HAVC coloring function.  Classic path: HAVC_colorizer (on 2x2
+    or 1x2 overlapping tiles for Placebo and VerySlow, at the tiles'
+    render factor), then the speed-tier stabilizer settings (colormap only
+    for the fast presets; dark + smooth + colormap + stab for the others).
     DeepEx methods 0/1/2: HAVC_colorizer with scene detection makes the
     reference frames, HAVC_deepex propagates them, then the fast
-    stabilizer settings.  DeepEx methods 3-6, FrameInterp, ColorTemp and
-    the Placebo/VerySlow tiling raise."""
+    stabilizer settings.  DeepEx methods 3-6, FrameInterp and ColorTemp
+    raise."""
     HAVC_set_debug_level(debug_level)
     dev = resolve_device(device)
 
@@ -411,20 +847,27 @@ def HAVC_main_colorizer(
     stab_enabled = not DeepExOnlyRefFrames and ColorTune.lower() != "none"
 
     if presets.get_temp_color(ColorTemp) > 0:
-        raise _not_ported("ColorTemp re-colorization", "exemplar path, ColorMNet")
+        raise _not_ported("ColorTemp re-colorization (HAVC_cmnet2)",
+                          "item 15, ColorTemp and FrameInterp")
     if FrameInterp != 0:
-        raise _not_ported("FrameInterp (HAVC_colorizer_fast)", "the rest of the classic surface")
+        raise _not_ported("FrameInterp (HAVC_colorizer_fast)", "item 15, ColorTemp and FrameInterp")
+
+    # Placebo/VerySlow tile geometry
+    slices_n = 0
+    overlap_x = int(round(max(min((0.5 * clip.width) * 0.2, 192), 64)) // 2 * 2)
+    overlap_y = int(round(max(min((0.5 * clip.height) * 0.2, 108), 64)) // 2 * 2)
+    deoldify_rf_n = min(max(math.trunc((0.5 * clip.width + overlap_x) / 16), 22), 32)
+    ddcolor_rf_n = deoldify_rf_n
     if speed_id in (0, 1):
-        raise _not_ported("Placebo/VerySlow tile slicing (ops/tiles.py)",
-                          "the rest of the classic surface")
+        slices_n = 4 if speed_id == 0 else 2
 
     clip, to_host = _on(clip, dev)
 
-    def _colorize(c, **sc):
+    def _colorize(c, do_rf, dd_rf, **sc):
         return HAVC_colorizer(
             c, method=dd_method, mweight=ddcolor_weight,
-            deoldify_p=(do_model, deoldify_rf, 1.0, 0.0),
-            ddcolor_p=(dd_model, ddcolor_rf, 1.0, 0.0, enable_fp16),
+            deoldify_p=(do_model, do_rf, 1.0, 0.0),
+            ddcolor_p=(dd_model, dd_rf, 1.0, 0.0, enable_fp16),
             ddtweak=tuple(dd_tweak), ddtweak_p=(DEF_TWEAK_p, hue_range),
             batch_size=batch_size, device=dev, **sc,
         )
@@ -435,14 +878,19 @@ def HAVC_main_colorizer(
         _check_deepex_input(DeepExOnlyRefFrames, ScFrameDir, DeepExMethod,
                             ScThreshold, ScMinFreq, DeepExRefMerge)
         if DeepExMethod in (5, 6):
-            raise _not_ported("DeepExMethod 5/6 (external reference video)", "streaming, io/")
+            raise _not_ported("DeepExMethod 5/6 (external reference video, HAVC_restore_video)",
+                              "item 16, DeepEx and DeepRemaster")
         if DeepExMethod == DEF_HAVC_METHOD_PLACEBO:
-            raise _not_ported("the frame-interpolation DeepEx method", "the rest of the classic surface")
+            raise _not_ported("the frame-interpolation DeepEx method",
+                              "item 15, ColorTemp and FrameInterp")
+        if DeepExModel != 0:  # before the references are colorized for nothing
+            raise _not_ported(f"DeepExModel={DeepExModel} (DeepEx / DeepRemaster / hybrid)",
+                              "item 16, DeepEx and DeepRemaster")
         if DeepExRefMerge > 0:
             ScMinFreq = 1
         ref_tresh = ScThreshold if ScThreshold is not None and 0 < ScThreshold < 1 else 0.10
         clip_ref = _colorize(
-            clip, sc_threshold=ScThreshold, sc_tht_offset=ScThtOffset,
+            clip, deoldify_rf, ddcolor_rf, sc_threshold=ScThreshold, sc_tht_offset=ScThtOffset,
             sc_min_freq=ScMinFreq, sc_min_int=ScMinInt, sc_tht_ssim=ScThtSSIM,
             sc_normalize=ScNormalize,
         )
@@ -463,11 +911,21 @@ def HAVC_main_colorizer(
         )
         return clip_colored.to_host() if to_host else clip_colored
     if EnableDeepEx and DeepExMethod in (3, 4):
-        raise _not_ported("DeepExMethod 3/4 (reference directories)", "streaming, io/")
+        raise _not_ported("DeepExMethod 3/4 (reference directories)",
+                          "item 15, exemplar path (sc_framedir references)")
 
     # the classic path colorizes every frame: ScThreshold only gates the
     # DeepEx reference frames
-    clip_colored = _colorize(clip)
+    if slices_n == 0:
+        clip_colored = _colorize(clip, deoldify_rf, ddcolor_rf)
+    else:
+        with stage_timer("tiles"):
+            ct = HAVC_clip_slice(clip, slices=slices_n, overlap_x=overlap_x,
+                                 overlap_y=overlap_y, device=dev)
+        tiles_colored = _colorize(ct.tiles_clip, deoldify_rf_n, ddcolor_rf_n)
+        with stage_timer("tiles"):
+            clip_colored = HAVC_clip_reconstruct(ct.with_tiles(tiles_colored),
+                                                 chroma_resize=True, device=dev)
 
     rf = min(deoldify_rf, ddcolor_rf)
     if speed_id > 4:  # fast / faster / veryfast: colormap only
@@ -475,13 +933,21 @@ def HAVC_main_colorizer(
             clip_colored, colormap=chroma_adjust, render_factor=rf,
             batch_size=batch_size, device=dev,
         )
-    else:  # slower / slow / medium
+    elif speed_id > 1:  # slower / slow / medium
         clip_colored = HAVC_stabilizer(
             clip_colored, dark=True, dark_p=(0.2, 0.8),
             colormap=chroma_adjust, smooth=True,
             smooth_p=(0.3, 0.7, 0.9, 0.0, "none"),
             stab=(stab_enabled and dd_method != 0),
             stab_p=(5, "A", 1, 15, 0.2, 0.8), render_factor=rf,
+            batch_size=batch_size, device=dev,
+        )
+    else:  # placebo / veryslow: every filter (stab_p carries hue_range2, unread)
+        clip_colored = HAVC_stabilizer(
+            clip_colored, dark=True, dark_p=(0.2, 0.8),
+            colormap=chroma_adjust, smooth=True,
+            smooth_p=(0.3, 0.7, 0.9, 0.0, "none"), stab=stab_enabled,
+            stab_p=(5, "A", 1, 15, 0.2, 0.8, hue_range2), render_factor=rf,
             batch_size=batch_size, device=dev,
         )
     return clip_colored.to_host() if to_host else clip_colored
@@ -526,25 +992,33 @@ def HAVC_main_presets(
     deflicker: bool = False,
     device=None,
 ) -> Clip:
-    """Preset pipeline: HAVC_main_colorizer with every knob forwarded, then
-    deflicker when asked for.  BlackWhiteTune, the retinex/red film LUT
-    and ``lut`` raise."""
+    """Preset pipeline: BlackWhiteMode 6 runs the MSRCP retinex as a
+    pre-pass on the B&W input (and the post-pass becomes Light CLAHE);
+    HAVC_main_colorizer with every knob forwarded; the BlackWhiteTune
+    post-pass; ColorFix Retinex/Red applies the film LUT its ColorTune
+    selects; ``lut`` applies one more HAVC_TimeCube look; deflicker when
+    DeepEx, ColorTemp or a retinex ran, or ``deflicker`` asks for it."""
     HAVC_set_debug_level(debug_level)
     dev = resolve_device(device)
     presets.get_render_factors(Preset)
 
     EnableRetinex = (ColorTune.lower() != "none"
                      and ColorFix.lower() == "retinex/red")
-    if BlackWhiteTune.lower() != "none":
-        raise _not_ported("BlackWhiteTune (HAVC_bw_tune)", "the rest of the classic surface")
-    if EnableRetinex or lut is not None:
-        raise _not_ported("the film LUTs (ops/lut3d.py)", "the rest of the classic surface")
-    DeFlicker = EnableDeepEx or ColorTemp.lower() != "none" or deflicker
+    BWTuneRetinex = BlackWhiteTune.lower() != "none" and BlackWhiteMode == 6
+    DeFlicker = (EnableDeepEx or ColorTemp.lower() != "none"
+                 or EnableRetinex or BWTuneRetinex or deflicker)
 
     clip, to_host = _on(clip, dev)
+    work = clip
+    if BWTuneRetinex:
+        with stage_timer("bw_pre_tune"):
+            work = HAVC_bw_tune(work, BlackWhiteTune, bw_method=5, luma_blend=BlackWhiteBlend,
+                                batch_size=batch_size, device=dev)
+        BlackWhiteTune, BlackWhiteMode, BlackWhiteBlend = "light", 0, True
+
     with stage_timer("colorizer"):
-        clip_final = HAVC_main_colorizer(
-            clip, Preset, ColorModel, CombMethod, VideoTune, ColorFix,
+        clip_colored = HAVC_main_colorizer(
+            work, Preset, ColorModel, CombMethod, VideoTune, ColorFix,
             ColorTemp, ColorTune, ColorMap, EnableDeepEx, DeepExMethod,
             DeepExPreset, DeepExRefMerge, DeepExOnlyRefFrames, ScFrameDir,
             ScThreshold, ScThtOffset, ScMinFreq, ScMinInt, ScThtSSIM,
@@ -552,12 +1026,166 @@ def HAVC_main_presets(
             DeepExMaxMemFrames, FrameInterp, RefRange, enable_fp16,
             debug_level, engine_config, batch_size, device=dev,
         )
+
+    if BWTuneRetinex:
+        with stage_timer("retinex_tweak"):
+            clip_colored = HAVC_tweak(clip_colored, hue=5.0, sat=0.95, bright=0, cont=0.98,
+                                      gamma=0.98, batch_size=batch_size, device=dev)
+
+    if BlackWhiteTune.lower() != "none":
+        with stage_timer("bw_post_tune"):
+            clip_colored = HAVC_bw_tune(clip_colored, BlackWhiteTune, BlackWhiteMode,
+                                        BlackWhiteBlend, batch_size=batch_size, device=dev)
+
+    clip_final = clip_colored
+    if EnableRetinex:
+        tune = ColorTune.lower()
+        look = None
+        if tune == "light":
+            look = (0.8, "exploration")
+        elif tune == "medium":
+            look = (0.6, "city_skyline")
+        elif tune == "strong":
+            look = (0.4, "amber_light") if ColorMap.lower() == "red->brown" else (0.6, "fuj_film")
+        if look is not None:
+            with stage_timer("retinex_lut"):
+                clip_final = HAVC_TimeCube(clip_colored, look[0], lut3d.LUT_NAMES.index(look[1]),
+                                           batch_size=batch_size, device=dev)
+
+    if lut is not None:
+        with stage_timer("lut_effect"):
+            clip_final = HAVC_TimeCube(clip_final, lut_effect=lut, batch_size=batch_size,
+                                       device=dev)
+
     if DeFlicker:
         with stage_timer("deflicker"), torch.inference_mode():
             sc = clip_final.sc.sc_prev if clip_final.sc is not None else None
             clip_final = clip_final.with_frames(
                 temporal_ops.reduce_flicker(clip_final.frames, scenechange=sc))
     return clip_final.to_host() if to_host else clip_final
+
+
+def HAVC_veryslow_preset(
+    clip: Clip,
+    Preset: str = "Slower",
+    FrameInterp: int = 0,
+    ColorModel: str = "Video+Artistic",
+    CombMethod: str = "Simple",
+    VideoTune: str = "Stable",
+    ColorFix: str = "Magenta/Violet",
+    ColorTune: str = "Light",
+    ColorMap: str = "None",
+    ColorTemp: str = "None",
+    BlackWhiteTune: str = "None",
+    BlackWhiteMode: int = 0,
+    BlackWhiteBlend: bool = True,
+    EnableDeepEx: bool = False,
+    DeepExMethod: int = 0,
+    ScThreshold: float = 0.1,
+    ScMinFreq: int = 0,
+    RefRange: tuple = (0, 0),
+    enable_fp16: bool = True,
+    debug_level: int = 0,
+    engine_config: Optional[str] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """VerySlow dual pass: the color model split in two; the DeOldify half
+    colorizes a hard-darkened clip (then a Medium ScaleAbs BW tune with its
+    film LUT, and sat 0.95 / hue 5), the DDColor or Zhang half a lightly
+    darkened one; both merged on the clip's luma at the VideoTune weight
+    with the CombMethod; then the BlackWhiteTune adjust with a hue 10 / sat
+    1.05 / cont 0.90 tweak, blended 40/60 with the merge.  FrameInterp and
+    ColorTemp raise."""
+    if FrameInterp > 0 or presets.get_temp_color(ColorTemp) > 0:
+        raise _not_ported("FrameInterp / ColorTemp in HAVC_veryslow_preset",
+                          "item 15, ColorTemp and FrameInterp")
+    dev = resolve_device(device)
+    do_name, dd_name = presets.split_color_model(ColorModel)
+    clip, to_host = _on(clip, dev)
+
+    def _pass(dark_gamma, dark_cont, model, cf, ctune, cmap):
+        dark = HAVC_tweak(clip, bright=-1 / 255.0, gamma=dark_gamma, cont=dark_cont,
+                          batch_size=batch_size, device=dev)
+        return HAVC_main_presets(
+            dark, Preset=Preset, ColorModel=model, ColorTemp="none", ColorFix=cf,
+            ColorTune=ctune, ColorMap=cmap, BlackWhiteTune="light", BlackWhiteMode=0,
+            BlackWhiteBlend=True, FrameInterp=0, EnableDeepEx=EnableDeepEx,
+            DeepExMethod=DeepExMethod, ScThreshold=ScThreshold, ScMinFreq=ScMinFreq,
+            RefRange=RefRange, enable_fp16=enable_fp16, debug_level=debug_level,
+            engine_config=engine_config, batch_size=batch_size, device=dev,
+        )
+
+    clip1 = clip2 = None
+    if do_name != "none":
+        with stage_timer("pass_deoldify"):
+            clip1 = _pass(0.90, 0.80, do_name, "none", "medium", "none")
+            clip1 = HAVC_ColorAdjust(clip1, BlackWhiteTune="medium", BlackWhiteMode=4,
+                                     BlackWhiteBlend=True, ReColor=False, chroma_resize=True,
+                                     batch_size=batch_size, device=dev)
+            clip1 = HAVC_tweak(clip1, sat=0.95, hue=5, batch_size=batch_size, device=dev)
+    if dd_name != "none":
+        with stage_timer("pass_ddcolor"):
+            clip2 = _pass(0.95, 0.95, dd_name, ColorFix, ColorTune, ColorMap)
+
+    with stage_timer("veryslow_merge"):
+        if clip1 is None:
+            clip_colored = HAVC_merge(clipa=clip2, clip_luma=clip, method=0,
+                                      batch_size=batch_size, device=dev)
+        elif clip2 is None:
+            clip_colored = HAVC_merge(clipa=clip1, clip_luma=clip, method=0,
+                                      batch_size=batch_size, device=dev)
+        else:
+            clip_colored = HAVC_merge(
+                clipa=clip1, clipb=clip2, clip_luma=clip,
+                weight=presets.get_mweight(VideoTune),
+                method=presets.get_comb_method(CombMethod), batch_size=batch_size, device=dev,
+            )
+    with stage_timer("veryslow_adjust"):
+        clip_adjusted = HAVC_ColorAdjust(
+            clip_colored, BlackWhiteTune=BlackWhiteTune, BlackWhiteMode=BlackWhiteMode,
+            BlackWhiteBlend=BlackWhiteBlend, ReColor=False, batch_size=batch_size, device=dev,
+        )
+        clip_adjusted = HAVC_tweak(clip_adjusted, hue=10, sat=1.05, cont=0.90,
+                                   batch_size=batch_size, device=dev)
+        out = HAVC_merge(clipa=clip_adjusted, clipb=clip_colored, weight=0.4, method=2,
+                         batch_size=batch_size, device=dev)
+    return out.to_host() if to_host else out
+
+
+def HAVC_placebo_preset(
+    clip: Clip,
+    CombMethod: str = "Simple",
+    VideoTune: str = "Stable",
+    ColorModel: str = "Video+Artistic",
+    ColorFix: str = "Magenta/Violet",
+    ColorTune: str = "Light",
+    ColorMap: str = "None",
+    ColorTemp: str = "None",
+    FrameInterp: int = 0,
+    BlackWhiteTune: str = "None",
+    BlackWhiteMode: int = 0,
+    BlackWhiteBlend: bool = True,
+    RefRange: tuple = (0, 0),
+    enable_fp16: bool = True,
+    debug_level: int = 0,
+    engine_config: Optional[str] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Placebo: HAVC_main_presets at Preset 'placebo' (2x2 tiles inside
+    HAVC_main_colorizer).  FrameInterp and ColorTemp raise."""
+    if FrameInterp != 0 or presets.get_temp_color(ColorTemp) > 0:
+        raise _not_ported("FrameInterp / ColorTemp in HAVC_placebo_preset",
+                          "item 15, ColorTemp and FrameInterp")
+    return HAVC_main_presets(
+        clip, "placebo", 0, ColorModel=ColorModel, CombMethod=CombMethod,
+        VideoTune=VideoTune, ColorFix=ColorFix, ColorTune=ColorTune, ColorMap=ColorMap,
+        ColorTemp="none", BlackWhiteTune=BlackWhiteTune, BlackWhiteMode=BlackWhiteMode,
+        BlackWhiteBlend=BlackWhiteBlend, RefRange=RefRange, enable_fp16=enable_fp16,
+        debug_level=debug_level, engine_config=engine_config, batch_size=batch_size,
+        device=device,
+    )
 
 
 def HAVC_main(
@@ -599,17 +1227,30 @@ def HAVC_main(
     device=None,
 ) -> Clip:
     """Top-level entry, same names and defaults as the JAX package's.
-    Presets Medium..VeryFast run HAVC_main_presets; Placebo and VerySlow
-    raise."""
+    Placebo runs HAVC_placebo_preset (tiled), VerySlow HAVC_veryslow_preset
+    (two passes at 'Slower', DeepEx off), the others HAVC_main_presets.
+    ``BWTune`` is a legacy alias of BlackWhiteTune."""
     if BWTune is not None:
         BlackWhiteTune = BWTune
     HAVC_set_debug_level(debug_level)
     dev = resolve_device(device)
 
     speed_id, _, _ = presets.get_render_factors(Preset)
-    if speed_id in (0, 1):
-        raise _not_ported(f"Preset {Preset!r} (HAVC_placebo/veryslow_preset)",
-                          "the rest of the classic surface")
+    if speed_id == 0:
+        return HAVC_placebo_preset(
+            clip, CombMethod, VideoTune, ColorModel, ColorFix, ColorTune,
+            ColorMap, ColorTemp, FrameInterp, BlackWhiteTune,
+            BlackWhiteMode, BlackWhiteBlend, RefRange, enable_fp16,
+            debug_level, engine_config=engine_config, batch_size=batch_size, device=dev,
+        )
+    if speed_id == 1:
+        return HAVC_veryslow_preset(
+            clip, "slower", FrameInterp, ColorModel, CombMethod, VideoTune,
+            ColorFix, ColorTune, ColorMap, ColorTemp, BlackWhiteTune,
+            BlackWhiteMode, BlackWhiteBlend, EnableDeepEx=False,
+            RefRange=RefRange, enable_fp16=enable_fp16, debug_level=debug_level,
+            engine_config=engine_config, batch_size=batch_size, device=dev,
+        )
     return HAVC_main_presets(
         clip, Preset, FrameInterp, ColorModel, CombMethod, VideoTune,
         ColorFix, ColorTune, ColorMap, ColorTemp, BlackWhiteTune,
@@ -620,3 +1261,160 @@ def HAVC_main(
         DeepExMaxMemFrames, RefRange, enable_fp16, debug_level,
         engine_config, batch_size, device=dev,
     )
+
+
+
+# --------------------------------------------------------------------------
+# HAVC_main_restore / HAVC_ColorAdjust
+# --------------------------------------------------------------------------
+
+
+def HAVC_main_restore(
+    clip: Clip,
+    clip_colored: Optional[Clip] = None,
+    DeepExPreset: str = "medium",
+    DeepExModel: int = 0,
+    DeepExRefMerge: int = 0,
+    ScThreshold: float = 0.10,
+    ScMinFreq: int = 0,
+    ScNormalize: bool = False,
+    DeepExMaxMemFrames: int = 0,
+    DeepExMethod: int = 5,
+    DeepExVivid: bool = True,
+    DeepExEncMode: int = 0,
+    BlackWhiteTune: str = "Medium",
+    BlackWhiteMode: int = 0,
+    BlackWhiteBlend: bool = True,
+    chroma_resize: bool = False,
+    engine_config: Optional[str] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Main HAVC restoring function, its BlackWhiteTune part: the BW tune
+    with the per-mode hue/sat/bright/cont/gamma tweak tables.  A
+    ``clip_colored`` exemplar re-color raises (it needs
+    HAVC_restore_video)."""
+    del chroma_resize  # the stages already run at chroma resolution
+    if clip_colored is not None:
+        raise _not_ported("HAVC_main_restore with clip_colored (HAVC_restore_video)",
+                          "item 16, DeepEx and DeepRemaster")
+    if BlackWhiteTune.lower() == "none":
+        return clip
+    dev = resolve_device(device)
+    BlackWhiteMode = min(BlackWhiteMode, 5)
+    i = BlackWhiteMode
+    cont = [1.0, 0.95, 1.0, 0.95, 0.95, 0.90]
+    hue = [-10.0, -10.0, -10.0, -10.0, -10.0, -5.0]
+    sat = [1.10, 1.05, 1.10, 1.10, 0.95, 0.95]
+    bright = [0.0, 0.0, 0.0, 0.0, 0.0, -1.0]
+    if BlackWhiteTune.lower() == "light":
+        gamma = [1.0, 0.98, 0.98, 0.98, 0.98, 0.98]
+    else:
+        gamma = [1.0, 0.95, 0.95, 0.95, 0.95, 0.95]
+    out = HAVC_bw_tune(clip, BlackWhiteTune, i, BlackWhiteBlend, True, batch_size=batch_size,
+                       device=dev)
+    if BlackWhiteMode < 4:  # not after ScaleAbs / Retinex
+        out = HAVC_tweak(out, hue[i], sat[i], bright[i] / 255.0, cont[i], gamma[i],
+                         batch_size=batch_size, device=dev)
+    return out
+
+
+def HAVC_ColorAdjust(
+    clip: Clip,
+    BlackWhiteTune: str = "Light",
+    BlackWhiteMode: int = 0,
+    BlackWhiteBlend: bool = True,
+    ReColor: bool = True,
+    Strength: int = 0,
+    ScThreshold: float = 0.10,
+    ScNormalize: bool = True,
+    DeepExVivid: bool = True,
+    ScMinFreq: int = 0,
+    chroma_resize: bool = False,
+    clip_ref: Optional[Clip] = None,
+    engine_config: Optional[str] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """HAVC color post-processing: BlackWhiteTune through
+    HAVC_main_restore, and for BlackWhiteMode 4/6 the ColorTune film-LUT
+    remap.  ``ReColor`` and ``clip_ref`` (a ColorMNet re-color) raise:
+    pass ``ReColor=False``."""
+    if BlackWhiteTune.lower() == "none" and not ReColor and clip_ref is None:
+        return clip
+    if ReColor or clip_ref is not None:
+        raise _not_ported("HAVC_ColorAdjust ReColor / clip_ref (HAVC_restore_video)",
+                          "item 16, DeepEx and DeepRemaster")
+    dev = resolve_device(device)
+    tn_id = presets.get_tune_id(BlackWhiteTune)
+    remap = tn_id != 0 and BlackWhiteMode in (4, 6)
+    bw_tune, bw_mode = ("none", 4) if remap else (BlackWhiteTune, BlackWhiteMode)
+    out = HAVC_main_restore(
+        clip, None, "medium", 0, 1 + min(max(4 - Strength, 0), 4), ScThreshold, ScMinFreq,
+        ScNormalize, 0, 5, DeepExVivid, 0, BlackWhiteTune=bw_tune, BlackWhiteMode=bw_mode,
+        BlackWhiteBlend=BlackWhiteBlend, chroma_resize=chroma_resize,
+        engine_config=engine_config, batch_size=batch_size, device=dev,
+    )
+    if remap:
+        lut_map = {
+            (4, 1): (0.8, "exploration"), (4, 2): (0.6, "city_skyline"),
+            (4, 3): (0.5, "amber_light"), (6, 1): (0.6, "fuj_film"),
+            (6, 2): (0.7, "flat_pop"), (6, 3): (0.5, "warm_haze"),
+        }
+        strength, name = lut_map[(BlackWhiteMode, tn_id)]
+        out = HAVC_TimeCube(out, strength, lut3d.LUT_NAMES.index(name), batch_size=batch_size,
+                            device=dev)
+    return out
+
+
+# --------------------------------------------------------------------------
+# global parameter setters
+# --------------------------------------------------------------------------
+
+_GLOBAL_PARAMS = {
+    "tweak": list(DEF_TWEAK_p),
+    "cmc": list(DEF_CMC_p),
+    "lmm": list(DEF_LMM_p),
+    "alm": list(DEF_ALM_p),
+    "crt": list(DEF_CRT_p),
+}
+
+
+def HAVC_set_tweak_params(tweaks_param: Optional[list] = None, **kwargs):
+    """Set the global DDColor tweak defaults: the 8-slot list [bright,
+    cont, gamma, luma_constrained_tweak, luma_min, gamma_luma_min,
+    gamma_alpha, gamma_min], or slots by keyword.  The shared DEF_TWEAK_p
+    list is changed in place, so every default bound to it sees it."""
+    if tweaks_param is not None:
+        DEF_TWEAK_p[:] = list(tweaks_param)
+    names = ["bright", "cont", "gamma", "luma_constrained_tweak", "luma_min",
+             "gamma_luma_min", "gamma_alpha", "gamma_min"]
+    for k, v in kwargs.items():
+        if k in names:
+            DEF_TWEAK_p[names.index(k)] = v
+    _GLOBAL_PARAMS["tweak"] = list(DEF_TWEAK_p)
+    return list(DEF_TWEAK_p)
+
+
+def HAVC_set_merge_params(method: int = 2, merge_params: Optional[list] = None,
+                          cmc_p=None, lmm_p=None, alm_p=None, crt_p=None):
+    """Set the global parameter pack of a merge method: 3/7 CMC, 4 LMM,
+    5 ALM, 6 CRT (0-2 take none); or a pack by keyword.  The packs are
+    changed in place, so the defaults bound to them see it."""
+    if merge_params is not None:
+        if method in (3, 7):
+            cmc_p = merge_params
+        elif method == 4:
+            lmm_p = merge_params
+        elif method == 5:
+            alm_p = merge_params
+        elif method == 6:
+            crt_p = merge_params
+        elif method not in (0, 1, 2):
+            raise ValueError(f"HAVC_set_merge_params: unsupported method: {method}")
+    for key, pack, new in (("cmc", DEF_CMC_p, cmc_p), ("lmm", DEF_LMM_p, lmm_p),
+                           ("alm", DEF_ALM_p, alm_p), ("crt", DEF_CRT_p, crt_p)):
+        if new is not None:
+            pack[:] = list(new)
+            _GLOBAL_PARAMS[key] = list(new)
+    return dict(_GLOBAL_PARAMS)

@@ -9,7 +9,9 @@ weights made on its device from a ``torch.Generator`` (flax's default
 initialisers), and ``random_init_used`` is set.
 
 ``make_deoldify_fn`` / ``make_ddcolor_fn`` return ``fn(frames)`` over
-``(B, H, W, 3)`` tensors on the engine's device.
+``(B, H, W, 3)`` tensors on the engine's device; ``make_ddcolor_fn`` also
+runs the Zhang nets (DDColor model ids 2 and 3) and the tweak, retinex
+and denoise filters around the engine.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from .filters import constrained_tweak, recover_clip_luma
+from .ops import equalize
 from .ops.chroma import chroma_tweak
 from .ops.chroma import tweak as op_tweak
 from .utils.profiling import resolve_device
@@ -35,6 +38,7 @@ __all__ = [
     "load_npz_params",
     "make_deoldify_fn",
     "make_ddcolor_fn",
+    "zhang_frames",
     "DEF_STABLE_WEIGHT",
     "DEF_ARTISTIC_WEIGHT",
     "DEF_TWEAK_p",
@@ -93,6 +97,14 @@ class EngineRegistry:
             return dd.DDColor(**cfg) if cfg else dd.DDColor.from_config(name)
 
         return self._get("ddcolor", name, device, build, f"ddcolor_{name}.npz")
+
+    def zhang(self, name: str, device=None) -> nn.Module:
+        """Zhang ``eccv16`` or ``siggraph17`` at the published width."""
+        from .models import zhang as zh
+
+        return self._get("zhang", name, device,
+                         lambda cfg: zh.ECCV16() if name == "eccv16" else zh.Siggraph17(),
+                         f"zhang_{name}.npz")
 
     def colormnet(self, config: str, device=None) -> nn.Module:
         """ColorMNet's five parameter groups: the converted checkpoint
@@ -180,12 +192,13 @@ def make_ddcolor_fn(
     tweaks=(DEF_TWEAK_p, "none"),
     device=None,
 ) -> Callable:
-    """DDColor adapter: models 0=modelscope, 1=artistic (2/3, Zhang, not
-    ported yet); ``input_size = trunc(rf/2)*32``; optional tweak
-    prefilter (luma-constrained or plain), the hue fix, and luma recovery
-    when the prefilter ran."""
-    from .models import ddcolor as dd
-
+    """DDColor adapter: models 0=modelscope, 1=artistic, 2=Zhang
+    siggraph17, 3=Zhang eccv16.  DDColor runs at ``trunc(rf/2)*32``, Zhang
+    always at 256 (the reference's colorize call hardcodes it).  Prefilters: the
+    retinex equalizer (``tweaks_flags[2]``) or the tweak (luma-constrained
+    or plain); then the hue fix, the denoise postfilter (white balance and
+    luma CLAHE, ``tweaks_flags[1]``) and luma recovery when a prefilter
+    ran."""
     input_size = math.trunc(render_factor / 2) * 32
     tweaks_enabled, denoise_enabled, retinex_enabled = tweaks_flags
     if len(tweaks) == 2:
@@ -198,22 +211,22 @@ def make_ddcolor_fn(
     luma_min, gamma_luma_min, gamma_alpha, gamma_min = t[4], t[5], t[6], t[7]
 
     if model > 1:
-        raise NotImplementedError(
-            "DDColor model ids 2/3 (Zhang siggraph17/eccv16) are not ported to "
-            "havc_tpu_torch yet (ROADMAP queue 1: models/zhang.py)"
-        )
-    if denoise_enabled or (tweaks_enabled and retinex_enabled):
-        raise NotImplementedError(
-            "the DDColor denoise/retinex prefilters need ops/equalize.py, not "
-            "ported to havc_tpu_torch yet (ROADMAP queue 1: the rest of the "
-            "classic surface)"
-        )
-    m = registry.ddcolor("modelscope" if model == 0 else "artistic", device)
+        from .models import zhang as zh
+
+        m = registry.zhang("siggraph17" if model == 2 else "eccv16", device)
+        core = lambda x: zh.colorize(m, x, input_size=256)  # noqa: E731
+    else:
+        from .models import ddcolor as dd
+
+        m = registry.ddcolor("modelscope" if model == 0 else "artistic", device)
+        core = lambda x: dd.colorize(m, x, input_size=input_size)  # noqa: E731
 
     def fn(frames):
         x = frames
         if tweaks_enabled:
-            if luma_constrained:
+            if retinex_enabled:
+                x = equalize.rgb_equalizer(x, method=5, strength=1.0)
+            elif luma_constrained:
                 x = op_tweak(x, bright=bright, cont=cont)
                 x = constrained_tweak(
                     x, luma_min=luma_min, gamma=gamma,
@@ -222,11 +235,23 @@ def make_ddcolor_fn(
                 )
             else:
                 x = op_tweak(x, bright=bright, cont=cont, gamma=gamma)
-        out = dd.colorize(m, x, input_size=input_size)
+        out = core(x)
         if hue_adjust not in ("none", ""):
             out = chroma_tweak(out, hue_adjust=hue_adjust)
+        if denoise_enabled:
+            out = equalize.rgb_balance(out, strength=0.3, rgb_factor=(0.98, 1.02, 1.0))
+            out = equalize.rgb_equalizer(out, method=0, strength=0.2, luma_blend_on=False)
         if tweaks_enabled:
             out = recover_clip_luma(frames, out)
         return out
 
     return fn
+
+
+def zhang_frames(frames: torch.Tensor, model_name: str = "siggraph17", frame_size: int = 256,
+                 device=None) -> torch.Tensor:
+    """Zhang adapter: ``frames`` colorized by the ``model_name`` net at
+    ``frame_size``."""
+    from .models import zhang as zh
+
+    return zh.colorize(registry.zhang(model_name, device), frames, input_size=frame_size)

@@ -3,10 +3,16 @@
 The port's modules carry the flax module names, so the mapping is
 mechanical:
 
-* the inner ``Conv_0`` level of the JAX package's ``PtConv`` wrapper is
-  dropped (``up0/shuf/conv/conv/Conv_0/kernel`` -> ``up0.shuf.conv.conv.weight``);
+* the inner ``Conv_0`` / ``ConvTranspose_0`` level of the JAX package's
+  ``PtConv`` / ``PtConvTranspose`` wrappers is dropped
+  (``up0/shuf/conv/conv/Conv_0/kernel`` -> ``up0.shuf.conv.conv.weight``);
 * conv ``kernel`` HWIO -> OIHW ``transpose(3, 2, 0, 1)`` (depthwise
   ``(7, 7, 1, C)`` -> ``(C, 1, 7, 7)``); Dense ``kernel (in, out)`` -> ``(out, in)``;
+* a ``PtConvTranspose`` kernel (flax ``ConvTranspose`` with
+  ``transpose_kernel=True``) is stored ``(kH, kW, O, I)``: the same
+  ``transpose(3, 2, 0, 1)`` gives ``nn.ConvTranspose2d``'s ``(I, O, kH,
+  kW)``, in the same spatial orientation (no flip: ``transpose_kernel``
+  already computes torch's transposed convolution);
 * LayerNorm / BatchNorm ``scale`` -> ``weight``; BatchNorm ``mean``/``var``
   -> ``running_mean``/``running_var``;
 * raw parameters (``gamma``, ``query_feat``, ``query_embed``,
@@ -38,7 +44,7 @@ def flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[
 
 def torch_key(path: Tuple[str, ...]) -> str:
     """The ``state_dict`` key of a flax parameter path."""
-    *mods, leaf = [p for p in path if p != "Conv_0"]
+    *mods, leaf = [p for p in path if p not in ("Conv_0", "ConvTranspose_0")]
     if leaf == "kernel":
         leaf = "weight"
     return ".".join(mods + [_LEAF_NAMES.get(leaf, leaf)])

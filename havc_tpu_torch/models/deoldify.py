@@ -1,4 +1,5 @@
-"""DeOldify DynamicUnetWide (the Video and Stable weights), NCHW.
+"""DeOldify DynamicUnetWide (the Video and Stable weights) and
+DynamicUnetDeep (the Artistic weights), NCHW.
 
 Port of ``havc_tpu.models.deoldify``.  Submodule names are the flax ones
 (``ResNetBody_0``, ``up0.shuf.conv.conv``, ``last_cross.conv1.conv``, ...)
@@ -9,11 +10,12 @@ so that models/bridge.py maps a flax tree onto the ``state_dict``.
   stride-1 average pool ("blur").
 * ``UnetBlockWide``: shuf(up) ++ BN(skip) -> ReLU -> one conv (+ fastai
   self-attention, softmax over axis 1).
+* ``UnetBlockDeep``: shuf(up) to half its channels ++ BN(skip) -> ReLU ->
+  two convs of ``nf_factor`` times the joined channels (halved first in
+  the last block), the second with the self-attention.
 * The head: the final shuffle always blurs (a fastai-1.0.60 quirk the
   weights were trained with), dense merge with the input, a res block,
   a 1x1 conv to 3 channels and SigmoidRange(-3, 3).
-
-``DeOldifyDeep`` (the Artistic weights) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from .resnet import RESNET_CONFIGS, ResNetBody
 
 __all__ = [
     "DeOldifyWide",
+    "DeOldifyDeep",
     "DEOLDIFY_CONFIGS",
     "make_model",
     "colorize",
@@ -139,6 +142,28 @@ class UnetBlockWide(nn.Module):
         return self.conv(cat)
 
 
+class UnetBlockDeep(nn.Module):
+    """fastai/DeOldify UnetBlockDeep (DeOldify Artistic)."""
+
+    def __init__(self, up_in_c: int, skip_c: int, nf_factor: float = 1.5,
+                 final_div: bool = True, blur: bool = True, self_attention: bool = False):
+        super().__init__()
+        self.shuf = PixelShuffleICNR(up_in_c, up_in_c // 2, blur=blur)
+        self.bn = BatchNormInference(skip_c)
+        ni = up_in_c // 2 + skip_c
+        nf = int((ni if final_div else ni // 2) * nf_factor)
+        self.conv1 = ConvBnRelu(ni, nf)
+        self.conv2 = ConvBnRelu(nf, nf, self_attention=self_attention)
+        self.out_channels = nf
+
+    def forward(self, up_in, skip):
+        x = self.shuf(up_in)
+        if x.shape[2:] != skip.shape[2:]:
+            x = resize_nearest(x, skip.shape[2], skip.shape[3])
+        cat = F.relu(torch.cat([x, self.bn(skip)], dim=1))
+        return self.conv2(self.conv1(cat))
+
+
 class ResBlock(nn.Module):
     """fastai res_block with NormType.Spectral: two conv -> ReLU (with
     bias, no BN) and a residual."""
@@ -152,36 +177,30 @@ class ResBlock(nn.Module):
         return x + self.conv2(self.conv1(x))
 
 
-class DeOldifyWide(nn.Module):
-    """DynamicUnetWide (Video/Stable): nf = 512 * nf_factor."""
+class _DynamicUnet(nn.Module):
+    """The encoder, middle convs and head the Wide and Deep U-Nets share;
+    a subclass adds its ``up0..up3`` blocks and gives their last width."""
 
-    def __init__(self, encoder: str = "resnet101", nf_factor: int = 2,
-                 n_classes: int = 3, self_attention: bool = True,
-                 blur: bool = True, y_range: Tuple[float, float] = (-3.0, 3.0)):
+    def __init__(self, encoder: str, n_classes: int = 3,
+                 y_range: Tuple[float, float] = (-3.0, 3.0)):
         super().__init__()
         self.ResNetBody_0 = ResNetBody.from_config(encoder)
         cfg = RESNET_CONFIGS[encoder]
         stem = cfg.get("stem_features", 64)
         exp = 1 if cfg["block"] == "basic" else 4
         # channels of (relu, layer1, layer2, layer3, layer4)
-        chans = [stem] + [stem * 2 ** s * exp for s in range(4)]
-        ni = chans[4]
+        self.chans = [stem] + [stem * 2 ** s * exp for s in range(4)]
+        ni = self.chans[4]
         self.pre_bn = BatchNormInference(ni)
         self.mid_conv1 = ConvBnRelu(ni, ni * 2)
         self.mid_conv2 = ConvBnRelu(ni * 2, ni)
-        nf = 512 * nf_factor
-        skips_c = [chans[3], chans[2], chans[1], chans[0]]
-        c = ni
-        for i, skip_c in enumerate(skips_c):
-            n_out = nf if i != len(skips_c) - 1 else nf // 2
-            blk = UnetBlockWide(c, skip_c, n_out, blur=blur,
-                                self_attention=self_attention and i == len(skips_c) - 3)
-            self.add_module(f"up{i}", blk)
-            c = blk.out_channels
+        self.y_range = y_range
+        self.n_classes = n_classes
+
+    def _make_head(self, c: int):
         self.final_shuf = PixelShuffleICNR(c, c, blur=True, use_bn=False)
         self.last_cross = ResBlock(c + 3)
-        self.head_conv = nn.Conv2d(c + 3, n_classes, 1)
-        self.y_range = y_range
+        self.head_conv = nn.Conv2d(c + 3, self.n_classes, 1)
 
     def forward(self, x):
         inp = x
@@ -195,15 +214,50 @@ class DeOldifyWide(nn.Module):
         return sigmoid_range(self.head_conv(y), *self.y_range)
 
 
+class DeOldifyWide(_DynamicUnet):
+    """DynamicUnetWide (Video/Stable): nf = 512 * nf_factor."""
+
+    def __init__(self, encoder: str = "resnet101", nf_factor: int = 2,
+                 n_classes: int = 3, self_attention: bool = True,
+                 blur: bool = True, y_range: Tuple[float, float] = (-3.0, 3.0)):
+        super().__init__(encoder, n_classes, y_range)
+        nf = 512 * nf_factor
+        skips_c = self.chans[3::-1]
+        c = self.chans[4]
+        for i, skip_c in enumerate(skips_c):
+            n_out = nf if i != len(skips_c) - 1 else nf // 2
+            blk = UnetBlockWide(c, skip_c, n_out, blur=blur,
+                                self_attention=self_attention and i == len(skips_c) - 3)
+            self.add_module(f"up{i}", blk)
+            c = blk.out_channels
+        self._make_head(c)
+
+
+class DeOldifyDeep(_DynamicUnet):
+    """DynamicUnetDeep (Artistic): each block's width is ``nf_factor``
+    times its joined channels."""
+
+    def __init__(self, encoder: str = "resnet34", nf_factor: float = 1.5,
+                 n_classes: int = 3, self_attention: bool = True,
+                 blur: bool = True, y_range: Tuple[float, float] = (-3.0, 3.0)):
+        super().__init__(encoder, n_classes, y_range)
+        skips_c = self.chans[3::-1]
+        c = self.chans[4]
+        for i, skip_c in enumerate(skips_c):
+            blk = UnetBlockDeep(c, skip_c, nf_factor=nf_factor,
+                                final_div=i != len(skips_c) - 1, blur=blur,
+                                self_attention=self_attention and i == len(skips_c) - 3)
+            self.add_module(f"up{i}", blk)
+            c = blk.out_channels
+        self._make_head(c)
+
+
 def make_model(weights_name: str) -> nn.Module:
-    """Model for a published weights name: video / stable."""
+    """Model for a published weights name: video / stable / artistic."""
     variant, encoder, nf = DEOLDIFY_CONFIGS[weights_name]
-    if variant != "wide":
-        raise NotImplementedError(
-            f"DeOldify {weights_name!r} (DeOldifyDeep) is not ported to "
-            "havc_tpu_torch yet (ROADMAP queue 1: DeOldifyDeep)"
-        )
-    return DeOldifyWide(encoder=encoder, nf_factor=int(nf))
+    if variant == "wide":
+        return DeOldifyWide(encoder=encoder, nf_factor=int(nf))
+    return DeOldifyDeep(encoder=encoder, nf_factor=float(nf))
 
 
 @functools.lru_cache(maxsize=8)

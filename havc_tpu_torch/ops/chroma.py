@@ -5,7 +5,8 @@ Port of ``havc_tpu.ops.chroma``:
 * the hue-range DSL ``"hue1_min:hue1_max,...|adjust,weight"`` with 12
   named hue-wheel sectors, parsed on the host into plain tuples;
 * hue-mask desaturation / hue mapping (``adjust_chroma``);
-* gray-pixel color restore with a binary mask (``restore_color``);
+* gray-pixel color restore with a binary mask (``restore_color``) or a
+  soft saturation mask (``gradient_mask``, ``restore_color_gradient``);
 * HSV/YUV tweaks: saturation, brightness, hue rotation, gamma, percentile
   contrast, and the luma-constrained levels.
 
@@ -14,8 +15,10 @@ on the 0..255 scale keep that scale and are divided by 255 inside.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from .colorspace import hsv_to_rgb, pymod, rgb_to_hsv, rgb_to_yuv, yuv_to_rgb
@@ -35,6 +38,8 @@ __all__ = [
     "brightness",
     "luma_adjusted_levels",
     "restore_color",
+    "gradient_mask",
+    "restore_color_gradient",
     "weighted_merge",
     "mask_merge",
 ]
@@ -213,15 +218,17 @@ def chroma_tweak(
 
 def _percentile(y: torch.Tensor, perc: float) -> torch.Tensor:
     """Per-frame percentile over the last two axes, linear interpolation
-    weighted as ``jnp.percentile`` does; returns shape (..., 1, 1)."""
+    weighted as ``jnp.percentile`` does (its float32 index arithmetic,
+    done on the host: nothing waits for the card); returns shape
+    (..., 1, 1)."""
     flat = torch.sort(y.flatten(-2), dim=-1).values
     n = flat.shape[-1]
-    q = torch.tensor(perc / 100.0 * (n - 1), dtype=y.dtype, device=y.device)
-    low = torch.floor(q)
-    high_w = q - low
-    lo_i = int(low.item())
+    q = np.float32(perc / 100.0 * (n - 1))
+    low = np.floor(q)
+    high_w = np.float32(q - low)
+    lo_i = int(low)
     hi_i = min(lo_i + 1, n - 1)
-    out = flat[..., lo_i] * (1.0 - high_w) + flat[..., hi_i] * high_w
+    out = flat[..., lo_i] * float(np.float32(1.0) - high_w) + flat[..., hi_i] * float(high_w)
     return out[..., None, None]
 
 
@@ -344,4 +351,55 @@ def restore_color(
         restored = adjust_chroma(
             restored, param.ranges, param.sat, param.hue, param.weight
         )
+    return restored
+
+
+def gradient_mask(saturation: torch.Tensor, tht: int = 15, alpha: float = 2.0,
+                  algo: int = 0) -> torch.Tensor:
+    """Soft "is gray" mask in [0,1] from an HSV saturation channel in
+    [0,1]; ``tht`` on the 0..255 scale.  Decay ``algo``: 0 linear with a
+    steep gradient, 1 power law, 2 exponential (0.5 at ``tht``, 0 from
+    ``2 * tht``)."""
+    s255 = saturation * 255.0
+    tht = int(min(max(tht, 0), 255))
+    if tht == 0:
+        return torch.zeros_like(saturation)
+    if algo == 0:
+        steep = 2.0
+        grad = torch.where(s255 < tht, steep * s255 / alpha - tht, steep * (s255 - tht) * alpha)
+        return torch.clamp(255.0 - tht - grad, 0.0, 255.0) / 255.0
+    if algo == 1:
+        max_s = min(2 * tht, 200)
+        s_c = torch.clamp(s255, 0.0, max_s)
+        return (1.0 - s_c / max_s) ** alpha
+    s_rel = torch.clamp(s255 / tht, 0.0, 2.0)
+    mask = torch.exp(-alpha * s_rel * math.log(2.0))
+    return torch.where(s255 >= 2 * tht, 0.0, mask)
+
+
+def restore_color_gradient(
+    color: torch.Tensor,
+    gray: torch.Tensor,
+    sat: float = 1.0,
+    tht: int = 50,
+    weight: float = 0.0,
+    alpha: float = 2.0,
+    algo: int = 0,
+    return_mask: bool = False,
+):
+    """``restore_color`` with the soft ``gradient_mask`` in place of the
+    binary one, and no scene-cut gate."""
+    hsv_color = rgb_to_hsv(color)
+    if sat != 1.0:
+        s_scaled = torch.clamp(hsv_color[..., 1] * min(max(sat, 0.0), 10.0), 0.0, 1.0)
+        hsv_color = torch.stack([hsv_color[..., 0], s_scaled, hsv_color[..., 2]], dim=-1)
+    color_sat = hsv_to_rgb(hsv_color)
+    mask = gradient_mask(rgb_to_hsv(gray)[..., 1], tht, alpha, algo)
+    if return_mask:
+        return mask
+    restored = mask_merge(gray, color_sat, mask)
+    if weight > 0:
+        restored = weighted_merge(restored, color_sat, weight)
+    elif weight < 0:
+        restored = weighted_merge(restored, gray, -weight)
     return restored

@@ -7,10 +7,12 @@ Port of ``havc_tpu.ops.merge``.  Method ids match the reference:
   double re-merge (the streaming path's default)
 * 4 ``LumaMaskedMerge`` — (gradient) luma mask merge
 * 5 ``AdaptiveLumaMerge`` — weight decays with the frame's luma
+* 6 ``ChromaRetentionMerge`` — gray pixels of one clip recolored from the
+  other through a soft saturation mask, optionally at a reduced chroma
+  resolution with the full-resolution luma married back
 * 7 ``ChromaBoundAdaptiveMerge`` — Laplacian-texture adaptive chroma clamp
-* 6 ``ChromaRetentionMerge`` is not ported yet and raises
-  ``NotImplementedError`` (ROADMAP, queue 1, "the rest of the classic
-  surface").
+
+``luma_blend`` is the frame-luma-driven blend the equalizers use.
 
 Functions take ``(..., H, W, 3)`` RGB in [0,1].  The per-frame branches of
 the reference (mean-luma gates) are selections on per-frame reductions.
@@ -21,17 +23,21 @@ import functools
 
 import torch
 
-from .chroma import adjust_chroma, mask_merge, parse_hue_ranges, tweak, weighted_merge
+from .chroma import (adjust_chroma, mask_merge, parse_hue_ranges, restore_color,
+                     restore_color_gradient, tweak, weighted_merge)
 from .colorspace import luma, rgb_to_yuv, yuv_to_rgb
+from .resize import resize
 
 __all__ = [
     "simple_merge",
     "luma_masked_merge",
     "w_luma_masked_merge",
     "adaptive_luma_merge",
+    "luma_blend",
     "chroma_limit",
     "constrained_chroma_merge",
     "chroma_bound_adaptive_merge",
+    "chroma_retention_merge",
     "combine_models",
     "DEF_CMC_p",
     "DEF_LMM_p",
@@ -83,6 +89,23 @@ def w_luma_masked_merge(
     grad = round(1.0 / (max_white - tresh), 3)
     w = torch.clamp((y255 - tresh) * grad, 0.0, 1.0)
     return mask_merge(dark, white, w)
+
+
+def luma_blend(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    luma_limit: float = 0.4,
+    alpha: float = 0.90,
+    min_w: float = 0.15,
+    decay: float = 4.0,
+) -> torch.Tensor:
+    """Frame-luma-driven blend: on frames of ``a`` darker than
+    ``luma_limit`` the weight of ``b`` is ``max(alpha * (L / limit) **
+    decay, min_w)``; brighter frames are ``b``."""
+    fl = _frame_luma(a)
+    bright_scale = torch.clamp((fl / luma_limit) ** decay, 0.0, 1.0)
+    w = torch.clamp(alpha * bright_scale, min=min_w)
+    return torch.where(fl < luma_limit, weighted_merge(a, b, w), b)
 
 
 def adaptive_luma_merge(
@@ -197,6 +220,53 @@ def chroma_bound_adaptive_merge(
     return out
 
 
+def chroma_retention_merge(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    sat: float = 0.8,
+    tht: int = 30,
+    b_weight: float = 0.9,
+    alpha: float = 2.0,
+    mask_weight: float = 0.0,
+    chroma_resize: bool = True,
+    binary_mask: bool = False,
+    algo: int = 0,
+    return_mask: bool = False,
+) -> torch.Tensor:
+    """Method 6: restore the colors of the gray pixels of ``a`` from
+    ``b``, with ``chroma_resize`` at a reduced square size (spline64) and
+    the full-resolution luma of ``a`` married back.  ``return_mask=True``
+    returns the gray-pixel mask as a 3-channel image."""
+    alpha = max(min(alpha, 10.0), 1.0)
+    h, w = a.shape[-3], a.shape[-2]
+    work_a, work_b = a, b
+    did_resize = False
+    if chroma_resize:
+        rf = min(max(int(0.4 * w / 16), 16), 48)
+        frame_size = min(rf * 16, w)
+        if frame_size < w:
+            work_a = resize(a, frame_size, frame_size, "spline64")
+            work_b = resize(b, frame_size, frame_size, "spline64")
+            did_resize = True
+    if binary_mask:
+        restored = restore_color(color=work_b, gray=work_a, sat=sat, tht=tht, weight=mask_weight,
+                                 tht_scen=1.0, return_mask=return_mask)
+    else:
+        restored = restore_color_gradient(color=work_b, gray=work_a, sat=sat, tht=tht,
+                                          weight=mask_weight, alpha=alpha, algo=algo,
+                                          return_mask=return_mask)
+    if return_mask:
+        mask = restored[..., None].expand(restored.shape + (3,))
+        if did_resize:
+            mask = resize(mask, h, w, "spline64")
+        return torch.clamp(mask, 0.0, 1.0)
+    if did_resize:
+        restored = resize(restored, h, w, "spline64")
+        yuv_r = rgb_to_yuv(restored)
+        restored = yuv_to_rgb(torch.stack([luma(a), yuv_r[..., 1], yuv_r[..., 2]], dim=-1))
+    return weighted_merge(a, restored, b_weight)
+
+
 def combine_models(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -215,6 +285,7 @@ def combine_models(
     cmc_p = list(cmc_p or DEF_CMC_p)
     lmm_p = list(lmm_p or DEF_LMM_p)
     alm_p = list(alm_p or DEF_ALM_p)
+    crt_p = list(crt_p or DEF_CRT_p)
     if len(cmc_p) == 1:
         cmc_p = cmc_p + [True, 20, 24]
     if invert_clips:
@@ -245,9 +316,9 @@ def combine_models(
     if method == 5:
         return adaptive_luma_merge(a, b, alm_p[0], alm_p[1], b_weight, alm_p[2])
     if method == 6:
-        raise NotImplementedError(
-            "merge method 6 (ChromaRetention: restore_color_gradient, gradient_mask) is not "
-            "ported to havc_tpu_torch yet (ROADMAP queue 1: the rest of the classic surface)"
+        return chroma_retention_merge(
+            a, b, sat=crt_p[0], tht=crt_p[1], b_weight=b_weight, alpha=crt_p[2],
+            chroma_resize=crt_p[3], mask_weight=crt_p[4], algo=crt_p[5],
         )
     if method == 7:
         return chroma_bound_adaptive_merge(

@@ -2,9 +2,10 @@
 length.  Port of ``havc_tpu.streaming``.
 
 ``HAVC_main_streaming(path_in, path_out, ...)`` runs the classic pipeline
-(spline64 work resize -> DeOldify and DDColor -> merge -> dark, smooth and
-colormap filters -> temporal chroma stabilizer -> full-resolution chroma
-restore -> deflicker) as a stream:
+(optional full-resolution BWTune pre-tune -> spline64 work resize ->
+DeOldify and DDColor -> merge -> dark, smooth and colormap filters ->
+temporal chroma stabilizer -> full-resolution chroma restore -> optional
+LUT look -> deflicker) as a stream:
 
 1. decode on a background thread (``io.stream.stream_batches``);
 2. upload of each uint8 batch through a ring of pinned staging buffers,
@@ -40,12 +41,14 @@ import numpy as np
 import torch
 
 from . import engines, presets
-from .api import _not_ported
+from .api import _not_ported, bw_tune_frames
 from .filters import (chroma_bright_tweak, colormap_filter, dark_tweak, recover_clip_luma,
                       recover_clip_luma_y)
 from .io.stream import FrameReader, stream_batches
+from .ops import lut3d
 from .ops import merge as merge_ops
 from .ops import temporal as temporal_ops
+from .ops.chroma import tweak
 from .ops.colorspace import luma as luma_of
 from .ops.resize import resize
 from .utils.profiling import resolve_device, stage_timer
@@ -319,13 +322,15 @@ def _build_frame_stage(
     method: int, mweight: float, do_model: int, dd_model: int,
     deoldify_rf: int, ddcolor_rf: int, dd_tweak, hue_range: str,
     hue_range2: str, chroma_adjust2: str, frame_size: int, device=None,
+    bw_tune_id: int = 0, bw_method: int = 0,
 ):
-    """The per-frame stage: uint8 or gray input -> spline64 work resize ->
+    """The per-frame stage: uint8 or gray input -> optional BWTune
+    (``bw_tune_frames`` at full resolution) -> spline64 work resize ->
     engines -> ``combine_models`` -> dark, smooth and colormap filters
     (the filters themselves, not the fused post-chain kernel, as the JAX
     streaming path runs them).  Returns ``stage(frames) -> (full-resolution
     luma planes, work-size colorized frames)``: the restore reads only the
-    original's luma."""
+    (tuned) original's luma."""
     dev = resolve_device(device)
     do_fn = dd_fn = None
     if method != 1:
@@ -342,6 +347,9 @@ def _build_frame_stage(
             frames = u8_to_unit(frames)
         if frames.shape[-1] == 1:
             frames = gray_to_rgb(frames)
+        if bw_tune_id > 0:
+            with stage_timer("bw_tune"):
+                frames = bw_tune_frames(frames, bw_tune_id, bw_method)
         with stage_timer("work_resize"):
             work = torch.clamp(resize(frames, frame_size, frame_size, "spline64"), 0.0, 1.0)
         if method == 0:
@@ -428,14 +436,13 @@ def HAVC_main_streaming(
       one decoded batch once and feeds it ``count // batch_size`` times
       (``count`` required), the compute-only measurement.
 
+    - ``BWTune`` / ``bw_method``: the full-resolution BW tune before the
+      work resize; ``LUT``: a built-in look (and its tweak) after the
+      restore.  Both retune luma on the device, so ``auto`` picks
+      ``i420``.
+
     ``.y4m`` input is read without OpenCV; other containers and the
-    ``video`` sink need it.  ``BWTune`` and ``LUT`` raise
-    ``NotImplementedError`` (ROADMAP queue 1, item 13)."""
-    if BWTune.lower() != "none":
-        raise _not_ported("BWTune in streaming (bw_tune_frames)", "the rest of the classic surface")
-    if LUT is not None:
-        raise _not_ported("LUT in streaming (ops/lut3d.py)", "the rest of the classic surface")
-    del bw_method
+    ``video`` sink need it."""
     if sink not in ("video", "null", "device"):
         raise ValueError(f"HAVC_main_streaming: unknown sink {sink!r}")
     if source not in ("video", "device"):
@@ -457,17 +464,20 @@ def HAVC_main_streaming(
         method = dd_method
     dd_tweak, hue_range, hue_range2, _, chroma_adjust2 = presets.get_color_tune(
         ColorTune, ColorFix, ColorMap, dd_model)
+    bw_tune_id = presets.get_tune_id(BWTune)
 
     fps, w, h, use_gray = _probe(path_in, gray_input)
     even = h % 2 == 0 and w % 2 == 0
-    use_uv420, use_i420 = _resolve_transfer(transfer_format, even, use_gray)
+    # BWTune retunes luma on the device; a LUT remaps luma and chroma jointly
+    use_uv420, use_i420 = _resolve_transfer(transfer_format, even, use_gray,
+                                            luma_retuned=bw_tune_id > 0 or LUT is not None)
     # in uv420 mode the (luma-only) deflicker runs on the host's Y planes
     dev_deflicker = EnableDeflicker and not use_uv420
 
     frame_size = min(max(ddcolor_rf, deoldify_rf) * 16, w)
     stage = _build_frame_stage(method, mweight, do_model, dd_model, deoldify_rf, ddcolor_rf,
                                dd_tweak, hue_range, hue_range2, chroma_adjust2, frame_size,
-                               device=dev)
+                               device=dev, bw_tune_id=bw_tune_id, bw_method=bw_method)
 
     # stab_p: (nframes, 'A'|'W', sat, tht, inner merge weight, tht_scen)
     stab_nframes = int(stab_p[0])
@@ -493,10 +503,28 @@ def HAVC_main_streaming(
                 x, nframes=stab_nframes, weighted=stab_weighted, sat=stab_sat, tht=stab_tht,
                 weight=stab_back, tht_scen=stab_tht_scen, frame0=f0)
 
+    # the look's lattice goes to the card once, before the loop
+    table = lut3d.lattice_on(lut3d.make_look_lut(LUT), dev) if LUT is not None else None
+    lut_tweaks = lut3d.LUT_TWEAKS.get(LUT) if LUT is not None else None
+
+    def look(x):
+        out = lut3d.apply_lut3d(x, table)
+        if lut_tweaks is not None:
+            hue, sat, bright, cont, gamma = lut_tweaks
+            out = tweak(out, hue=hue, sat=sat, bright=bright / 255.0, cont=cont, gamma=gamma)
+        return out
+
     def restore_chunk(hi_y, lo):
-        """Full-resolution tail: luma restore, then the device deflicker."""
+        """Full-resolution tail: luma restore, the LUT look, then the device
+        deflicker (the in-memory order: stabilizer, HAVC_TimeCube,
+        reduce_flicker)."""
         with stage_timer("restore"):
             out = recover_clip_luma_y(hi_y, torch.clamp(resize(lo, h, w, "spline64"), 0.0, 1.0))
+            if table is not None:
+                # a batch at a time: the lookup's gathers and the tweak's
+                # sort over a whole chunk at 1080p took 24 GB
+                out = torch.cat([look(out[i:i + batch_size])
+                                 for i in range(0, out.shape[0], batch_size)])
             if dev_deflicker:
                 out = temporal_ops.reduce_flicker(out)
             return out

@@ -196,15 +196,16 @@ def test_havc_main_without_cuda_raises():
 
 def test_unported_branches_raise():
     clip = havc_tpu_torch.Clip(frames=_gray_clip())
-    for kw in (dict(Preset="Placebo"), dict(EnableDeepEx=True, DeepExModel=1), dict(FrameInterp=1),
-               dict(BlackWhiteTune="Light")):
+    for kw in (dict(EnableDeepEx=True, DeepExModel=1), dict(FrameInterp=1),
+               dict(ColorTemp="Medium"), dict(Preset="Placebo", FrameInterp=1)):
         with pytest.raises(NotImplementedError):
             havc_tpu_torch.HAVC_main(clip, device="cpu", **kw)
 
 
 def test_port_imports_neither_jax_nor_havc_tpu():
-    """Every module of the port imports, and none pulls in jax, flax,
-    havc_tpu or cv2 (the GPU machine has none of them)."""
+    """Every module of the port imports (the classic-surface ones among
+    them), and none pulls in jax, flax, havc_tpu or cv2 (the GPU machine
+    has none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import havc_tpu_torch\n"
@@ -212,6 +213,9 @@ def test_port_imports_neither_jax_nor_havc_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'havc_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
+        "new = ['havc_tpu_torch.ops.' + m for m in ('equalize', 'retinex', 'lut3d', 'tiles')]\n"
+        "missing = [n for n in new + ['havc_tpu_torch.models.zhang'] if n not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok', len([n for n in sys.modules if n.startswith('havc_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -218,9 +218,11 @@ def test_combine_models_methods_3_4_5_7(kw):
 
 
 def test_combine_models_unported_method_raises():
+    """Every merge method of the JAX package is ported (method 6 with the
+    classic surface); an id it does not know raises there and here."""
     a = torch.zeros(1, 4, 4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmerge.combine_models(a, a, method=6)
+    with pytest.raises(ValueError, match="unsupported merge method"):
+        tmerge.combine_models(a, a, method=8)
 
 
 # --- filters ------------------------------------------------------------------

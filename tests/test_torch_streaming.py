@@ -696,9 +696,6 @@ def test_streaming_signatures_match_jax(J, name):
 def test_unported_streaming_options_raise(tmp_path):
     src = tmp_path / "in.y4m"
     _write_y4m(src, _gray_frames(t=2, h=8, w=8))
-    for kw in (dict(BWTune="light"), dict(LUT=0)):
-        with pytest.raises(NotImplementedError, match="classic surface"):
-            tstream.HAVC_main_streaming(str(src), "x.mp4", device="cpu", **kw)
     for ex in (1, 2, 3):
         with pytest.raises(NotImplementedError, match="DeepEx and DeepRemaster"):
             tstream.HAVC_restore_video_streaming(str(src), str(src), "x.mp4", ex_model=ex,
