@@ -34,9 +34,9 @@ JSON line; any failure exits non-zero:
    60 frames from one reference, so the working store fills and the
    long-term store is written on the card; it must not wait for the card
    (``torch.cuda.set_sync_debug_mode`` counts the host syncs).
-7. ``parity_cpu_gpu``: the test-sized main path and exemplar path (tiny
-   models, render factor 4) with ``device="cpu"`` and on CUDA; max abs <=
-   1e-4.
+7. ``parity_cpu_gpu`` (after phase 16): the test-sized main path and
+   exemplar path (tiny models, render factor 4) with ``device="cpu"`` and
+   on CUDA; max abs <= 1e-4.
 8. ``streaming``: ``HAVC_main_streaming`` with its defaults (Medium,
    constrained-chroma, batch 8, chunk 64) and the full-width engines on a
    seeded 136-frame 1080x1920 gray ``.y4m`` (written to a temporary
@@ -74,11 +74,34 @@ JSON line; any failure exits non-zero:
 13. ``streaming_tuned``: ``HAVC_main_streaming`` with ``BWTune="Light",
     LUT=2`` on 72 frames of the streaming phase's ``.y4m``: transfer modes
     (``gray+i420``), fps, host syncs per retired chunk, peak memory.
+14. ``recolor_path``: ``HAVC_ColorAdjust(clip, engine_config="full")`` with
+    its other defaults on a colored 24-frame 1080p clip of three scenes:
+    ReColor (the full ColorMNet re-colors the clip from itself at
+    references on every frame, ref-merge 5 at weight 0.7, the propagation
+    references from a normalised scene detection), then the Light RGB
+    adjust and tweak; then its ``profile`` run.
+15. ``colortemp_path``: ``HAVC_main(clip, ColorTemp="Medium")`` on the
+    exemplar clip: the classic engines on every frame, ``HAVC_cmnet2`` over
+    references at every frame with ref-merge 3, the stabilizer with one
+    post-chain launch; then its ``profile`` run.
+16. ``frameinterp_path``: ``HAVC_main(clip, FrameInterp=5)``: the classic
+    engines on the scene changes and every 5th frame, ColorMNet between
+    them, the stabilizer with one post-chain launch.
+17. ``exemplar_sources``: on a 12-frame 1080p clip of four scenes,
+    ``HAVC_main(EnableDeepEx=True)`` with method 5 and ref-merge 2 from a
+    colored mp4 (OpenCV writes it), method 3 from a directory written by
+    ``export_reference_frames``, and the all-refs encode mode 2.
+Each of 14-17 prints the wall time of a second call, fps, peak device
+memory, the stage times of a third call, the kernels' launches and the
+host syncs inside ``colormnet_propagate`` (the batched key encoder and
+the frame loop; any fails the phase).
 ``parity_cpu_gpu`` also covers the test-sized Placebo and VerySlow paths
-(6x136x240, tiny engines with DeOldify Deep "nano" and Zhang at width 8)
-and tuned streaming (within 1 code).  Each kernel's ``launches_by_path``
-gives its launches on every path driven (counts zeroed just before each
-path and read just after).
+(6x136x240, tiny engines with DeOldify Deep "nano" and Zhang at width 8),
+the paths of phases 14-17 at 6x48x64 (the restore with ref-merge 2 and
+the encode mode 2 for 17), CLAHE on a 1080x1920 plane (1e-5), and tuned
+streaming (within 1 code).  Each kernel's ``launches_by_path`` gives its
+launches on every path driven (counts zeroed just before each path and
+read just after; ``exemplar_sources`` sums its three calls).
 
 Then the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the result line.  Without CUDA, or without the
@@ -796,6 +819,209 @@ def phase_exemplar_memory(card: str) -> None:
         fail(f"exemplar_memory: the propagation waited for the card {len(syncs)} times")
 
 
+# --- phases 14-17: the rest of the ColorMNet exemplar surface ----------------------------
+
+# per-scene (a, b) gains of the colored clips: each channel scaled by
+# 1 + a sin(6x) + b cos(4y) over the frame (x, y in [0, 1])
+TINTS = [((0.30, -0.10, -0.25), (0.10, 0.05, -0.15)),
+         ((-0.20, 0.25, 0.05), (-0.10, 0.15, 0.10)),
+         ((0.05, -0.20, 0.30), (0.20, -0.05, 0.05)),
+         ((-0.15, 0.10, 0.20), (0.05, 0.20, -0.10))]
+SOURCES_T, SOURCES_PER = 12, 3  # the exemplar_sources clip: four scenes of 3 frames
+SOURCES_CUTS = [0, 3, 6, 9]
+
+
+def tinted(gray: torch.Tensor, per: int) -> torch.Tensor:
+    """A colored counterpart of a gray clip on the card: scene ``s`` of
+    ``per`` frames scaled per channel by TINTS[s % 4]'s smooth gain field."""
+    _, h, w, _ = gray.shape
+    yy = torch.linspace(0.0, 1.0, h, device=gray.device)[:, None, None]
+    xx = torch.linspace(0.0, 1.0, w, device=gray.device)[None, :, None]
+    out = torch.empty_like(gray)
+    for s in range(0, gray.shape[0], per):
+        a, b = (torch.tensor(v, device=gray.device) for v in TINTS[(s // per) % len(TINTS)])
+        gain = 1.0 + a * torch.sin(6.0 * xx) + b * torch.cos(4.0 * yy)
+        out[s:s + per] = (gray[s:s + per] * gain).clamp(0.0, 1.0)
+    return out
+
+
+class LoopSyncs:
+    """While active: the host syncs PyTorch reports inside every
+    ``exemplar.colormnet_propagate`` call (the batched key encoder and the
+    frame loop), summed over the calls."""
+
+    def __init__(self, exemplar):
+        self.ex, self.calls, self.syncs, self.sites = exemplar, 0, 0, []
+
+    def __enter__(self):
+        real = self.real = self.ex.colormnet_propagate
+
+        def spy(*a, **kw):
+            out, n, sites = count_syncs(lambda: real(*a, **kw))
+            self.calls, self.syncs = self.calls + 1, self.syncs + n
+            self.sites += sites
+            return out
+
+        self.ex.colormnet_propagate = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ex.colormnet_propagate = self.real
+
+
+def drive_exemplar_path(ht, pc, wa, card: str, name: str, run, frames_n: int,
+                        want_post_chain=None) -> dict:
+    """A ColorMNet path at full width: a first call (the engines made on the
+    card, cuDNN algorithm selection), a measured second call (wall time,
+    fps, peak memory, the kernels' launches, the host syncs inside
+    ``colormnet_propagate``), a stage-timed third.  Returns the row emitted
+    (``out`` and ``wall_s`` kept for the caller)."""
+    from havc_tpu_torch import exemplar
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    _, first_s = timed(run)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(pc, wa)
+    with LoopSyncs(exemplar) as loop:
+        out, wall_s = timed(run)
+    launches = read_launches(pc, wa)
+    peak = torch.cuda.max_memory_allocated()
+    enable_profiling(True)
+    reset_stages()
+    _, stage_timed_s = timed(run)
+    enable_profiling(False)
+    stages = {k: v[0] for k, v in stage_times().items()}
+    engines = [e for e in exemplar._ENGINE_CACHE.values() if e.cfg_name == "full"]
+    f = out.frames
+    ok_shape = isinstance(f, torch.Tensor) and f.is_cuda and f.shape[0] == frames_n
+    finite = bool(torch.isfinite(f).all().item())
+    lo, hi = f.min().item(), f.max().item()
+    row = dict(phase=name, card=card, clip=list(f.shape), first_call_s=first_s, wall_s=wall_s,
+               fps=frames_n / wall_s, stage_timed_wall_s=stage_timed_s, stages_s=stages,
+               max_memory_allocated=peak, launches=launches,
+               window_attn_calls=launches["window_attn"],
+               window_attn_launches=2 * launches["window_attn"],
+               post_chain_launches=launches["post_chain"], propagate_calls=loop.calls,
+               loop_host_syncs=loop.syncs, loop_sync_sites=loop.sites[:6],
+               colormnet_full=bool(engines), out_min=lo, out_max=hi,
+               mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item())
+    emit(row)
+    if not ok_shape:
+        fail(f"{name}: output {type(f)} {tuple(f.shape)} is not a CUDA clip of {frames_n} frames")
+    if not finite or lo < 0.0 or hi > 1.0:
+        fail(f"{name}: output not finite in [0,1] (finite={finite}, min={lo}, max={hi})")
+    if not engines or loop.calls < 1:
+        fail(f"{name}: the full ColorMNet did not run ({loop.calls} propagations)")
+    if launches["window_attn"] < 1:
+        fail(f"{name}: the window-attention kernel was not launched")
+    if want_post_chain is not None and launches["post_chain"] != want_post_chain:
+        fail(f"{name}: the post-chain kernel ran {launches['post_chain']} times, expected "
+             f"{want_post_chain}")
+    if loop.syncs:
+        fail(f"{name}: the ColorMNet frame loop waited for the card {loop.syncs} times")
+    if row["mean_abs_chroma"] <= 1e-4:
+        fail(f"{name}: no chroma in the output")
+    return dict(row, out=out)
+
+
+def phase_recolor_path(ht, pc, wa, card: str):
+    """``HAVC_ColorAdjust(clip)`` with its defaults on a colored 24-frame
+    1080p clip of three scenes: ReColor, the clip re-colored by the full
+    ColorMNet from itself at references on every frame (ref-merge 5,
+    weight 0.7), its scene changes found by a normalised detection; then
+    the Light RGB adjust and tweak (a re-color runs no CLAHE)."""
+    frames = tinted(torch.from_numpy(scene_clip_1080p()).cuda(), 8)
+
+    def run():
+        return ht.HAVC_ColorAdjust(ht.Clip(frames=frames), engine_config="full")
+
+    row = drive_exemplar_path(ht, pc, wa, card, "recolor_path", run, MAIN_SHAPE[0],
+                              want_post_chain=0)
+    if row["out"].sc is None or int(row["out"].sc.frequency) != 1:
+        fail("recolor_path: the output does not carry the every-frame reference flags")
+    return row["launches"], run, row["wall_s"]
+
+
+def phase_colortemp_path(ht, pc, wa, card: str):
+    """``HAVC_main(clip, ColorTemp="Medium")`` on the exemplar path's gray
+    clip: the classic engines on every frame, ``HAVC_cmnet2`` over
+    references at every frame with ref-merge 3, then the stabilizer with
+    the post chain."""
+    frames = torch.from_numpy(scene_clip_1080p()).cuda()
+
+    def run():
+        return ht.HAVC_main(ht.Clip(frames=frames), ColorTemp="Medium", engine_config="full")
+
+    row = drive_exemplar_path(ht, pc, wa, card, "colortemp_path", run, MAIN_SHAPE[0],
+                              want_post_chain=1)
+    return row["launches"], run, row["wall_s"]
+
+
+def phase_frameinterp_path(ht, pc, wa, card: str):
+    """``HAVC_main(clip, FrameInterp=5)``: the classic engines on the scene
+    changes and every 5th frame (``HAVC_colorizer_fast``), the full
+    ColorMNet in between, then the stabilizer with the post chain."""
+    frames = torch.from_numpy(scene_clip_1080p()).cuda()
+
+    def run():
+        return ht.HAVC_main(ht.Clip(frames=frames), FrameInterp=5, engine_config="full")
+
+    row = drive_exemplar_path(ht, pc, wa, card, "frameinterp_path", run, MAIN_SHAPE[0],
+                              want_post_chain=1)
+    cuts = np.nonzero(row["out"].sc.sc_prev)[0].tolist() if row["out"].sc is not None else None
+    emit(dict(phase="frameinterp_path", reference_frames=cuts))
+    if not cuts or cuts[0] != 0 or len(cuts) < 5:
+        fail(f"frameinterp_path: reference frames {cuts}, expected the cuts and every 5th")
+    return row["launches"], run, row["wall_s"]
+
+
+def phase_exemplar_sources(ht, pc, wa, card: str, tmp: str) -> dict:
+    """Three DeepEx reference sources on a 12-frame 1080p gray clip of four
+    scenes, each at full width: method 5 with ref-merge 2 from a colored
+    mp4 (written with OpenCV), method 3 from a directory written by
+    ``export_reference_frames``, and the all-refs encode mode 2 (HAVC
+    references, ScMinFreq 3 so that there are the four the mode needs)."""
+    import cv2
+
+    from havc_tpu_torch.io import export_reference_frames
+
+    h, w = MAIN_SHAPE[1:]
+    gray_np = np.stack(list(smooth_frames(SOURCES_T, SOURCES_PER, 13, h, w)))
+    gray = torch.from_numpy(np.repeat(gray_np[..., None], 3, axis=-1)).cuda()
+    colored = tinted(gray, SOURCES_PER)
+    video = f"{tmp}/sources_ref.mp4"
+    out = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (w, h))
+    for fr in (colored * 255.0).round().to(torch.uint8).cpu().numpy():
+        out.write(cv2.cvtColor(fr, cv2.COLOR_RGB2BGR))
+    out.release()
+    refdir = f"{tmp}/sources_refs"
+    export_reference_frames(ht.Clip(frames=colored).with_sc(
+        ht.SceneFlags.from_frame_list(SOURCES_T, SOURCES_CUTS)), refdir)
+    calls = {
+        "method5_video_refmerge2": dict(DeepExMethod=5, DeepExRefMerge=2, ScFrameDir=video),
+        "method3_directory": dict(DeepExMethod=3, ScFrameDir=refdir),
+        "encode_mode2": dict(DeepExEncMode=2, ScMinFreq=3),
+    }
+    total = dict(post_chain=0, window_attn=0)
+    rows = {}
+    for call, kw in calls.items():
+        def run(kw=kw):
+            return ht.HAVC_main(ht.Clip(frames=gray), EnableDeepEx=True, engine_config="full",
+                                **kw)
+
+        row = drive_exemplar_path(ht, pc, wa, card, f"exemplar_sources/{call}", run, SOURCES_T)
+        rows[call] = row
+        for k in total:
+            total[k] += row["launches"][k]
+    emit(dict(phase="exemplar_sources", card=card, clip=[SOURCES_T, h, w],
+              reference_files=sorted(os.listdir(refdir)),
+              wall_s={c: r["wall_s"] for c, r in rows.items()},
+              fps={c: r["fps"] for c, r in rows.items()}, launches=total))
+    if sorted(os.listdir(refdir)) != [f"ref_{n:06d}.jpg" for n in SOURCES_CUTS]:
+        fail(f"exemplar_sources: exported {sorted(os.listdir(refdir))}")
+    return total
+
+
 # --- phase 7: CPU <-> GPU parity at test size ---------------------------------------
 
 
@@ -867,16 +1093,38 @@ def phase_parity(ht) -> None:
     engines.make_ddcolor_fn = lambda model=1, render_factor=24, **kw: real_dd(model, 4, **kw)
     try:
         y = np.random.default_rng(7).random((6, 48, 64, 1), dtype=np.float32)
-        cases = [("main_path", np.repeat(y, 3, axis=-1), {}),
-                 ("exemplar_path", two_scene_clip(), dict(EnableDeepEx=True)),
-                 ("placebo", classic_test_clip(), PLACEBO_KW),
-                 ("veryslow", classic_test_clip(), VERYSLOW_KW)]
-        for name, frames, kw in cases:
-            out_cpu = ht.HAVC_main(ht.Clip(frames=frames.copy()), batch_size=4, device="cpu",
-                                   **kw).frames
-            out_gpu = ht.HAVC_main(ht.Clip(frames=frames.copy()), batch_size=4, **kw).frames
+        two = two_scene_clip()
+        colored = tinted(torch.from_numpy(two), 3).numpy()
+
+        def main(frames, **kw):
+            return lambda dev: ht.HAVC_main(ht.Clip(frames=frames.copy()), batch_size=4,
+                                            device=dev, **kw)
+
+        def allrefs(dev):  # four references: the all-refs mode needs them
+            ref = ht.Clip(frames=colored.copy()).with_sc(ht.SceneFlags.from_frame_list(
+                6, [0, 2, 3, 5], False))
+            return ht.HAVC_deepex(ht.Clip(frames=two.copy()), ref, encode_mode=2,
+                                  batch_size=4, device=dev)
+
+        cases = [("main_path", main(np.repeat(y, 3, axis=-1))),
+                 ("exemplar_path", main(two, EnableDeepEx=True)),
+                 ("placebo", main(classic_test_clip(), **PLACEBO_KW)),
+                 ("veryslow", main(classic_test_clip(), **VERYSLOW_KW)),
+                 ("recolor_path", lambda dev: ht.HAVC_ColorAdjust(
+                     ht.Clip(frames=colored.copy()), batch_size=4, device=dev)),
+                 ("colortemp_path", main(two, ColorTemp="Medium")),
+                 ("frameinterp_path", main(two, FrameInterp=5)),
+                 ("exemplar_sources/restore_refmerge2", lambda dev: ht.HAVC_restore_video(
+                     ht.Clip(frames=two.copy()), ht.Clip(frames=colored.copy()), method=5,
+                     ref_merge=2, batch_size=4, device=dev)),
+                 ("exemplar_sources/encode_mode2", allrefs)]
+        for name, run in cases:
+            out_cpu = run("cpu").frames
+            out_gpu = run(None).frames
+            out_gpu = out_gpu.cpu().numpy() if isinstance(out_gpu, torch.Tensor) else out_gpu
+            out_cpu = out_cpu.numpy() if isinstance(out_cpu, torch.Tensor) else out_cpu
             err = float(np.abs(out_cpu - out_gpu).max())
-            emit(dict(phase="parity_cpu_gpu", path=name, clip=list(frames.shape),
+            emit(dict(phase="parity_cpu_gpu", path=name, clip=list(out_gpu.shape),
                       max_abs_err=err, tol=PARITY_TOL,
                       mean_abs_chroma=float(np.abs(out_gpu - out_gpu.mean(-1, keepdims=True)).mean())))
             if not err <= PARITY_TOL:
@@ -887,6 +1135,24 @@ def phase_parity(ht) -> None:
         exemplar._ENGINE_CACHE.clear()
         exemplar._ENGINE_CACHE.update(saved_ex)
         engines.make_deoldify_fn, engines.make_ddcolor_fn = real_do, real_dd
+    phase_clahe_parity()
+
+
+def phase_clahe_parity() -> None:
+    """CLAHE on a 1080x1920 plane (tile height 135) on the CPU and on the
+    card: the tile coordinates are XLA's rounding of ``(i + 0.5) / t - 0.5``
+    on both (row 67 falls just below the first tile's centre)."""
+    from havc_tpu_torch.ops import equalize
+
+    x = torch.rand((1, 1080, 1920), generator=torch.Generator().manual_seed(4))
+    got = equalize.clahe_channel(x.cuda()).cpu()
+    want = equalize.clahe_channel(x)
+    err = float((got - want).abs().max())
+    row67 = float(equalize._tile_coords(1080, 135, torch.device("cuda"))[67].item())
+    emit(dict(phase="parity_cpu_gpu", path="clahe_1080", clip=[1, 1080, 1920], max_abs_err=err,
+              tol=KERNEL_TOL, tile_coordinate_row_67=row67))
+    if not err <= KERNEL_TOL or not row67 < 0.0:
+        fail(f"parity_cpu_gpu clahe_1080: max abs err {err}, row 67 coordinate {row67}")
 
 
 # --- phases 8, 9: the streaming paths ---------------------------------------------------
@@ -1275,9 +1541,19 @@ def main() -> None:
     phase_profile("exemplar_path", run_exemplar, ex_wall_s, smi, "window_attn")
     del run_exemplar
     phase_exemplar_memory(smi)
+    by_path["recolor_path"], run_recolor, rc_wall_s = phase_recolor_path(ht, pc, wa, smi)
+    phase_profile("recolor_path", run_recolor, rc_wall_s, smi, "window_attn")
+    del run_recolor
+    by_path["colortemp_path"], run_ct, ct_wall_s = phase_colortemp_path(ht, pc, wa, smi)
+    phase_profile("colortemp_path", run_ct, ct_wall_s, smi, "window_attn")
+    del run_ct
+    by_path["frameinterp_path"], _, _ = phase_frameinterp_path(ht, pc, wa, smi)
     phase_parity(ht)
     has_cv2 = importlib.util.find_spec("cv2") is not None
     with tempfile.TemporaryDirectory() as tmp:
+        if not has_cv2:
+            fail("exemplar_sources: OpenCV is needed to write the reference video")
+        by_path["exemplar_sources"] = phase_exemplar_sources(ht, pc, wa, smi, tmp)
         run_stream, st_wall_s, by_path["streaming"] = phase_streaming(ht, pc, wa, smi, tmp,
                                                                       has_cv2)
         phase_profile("streaming", run_stream, st_wall_s, smi, "post_chain")

@@ -16,9 +16,9 @@ Port of ``havc_tpu.api``:
 * the filters: ``HAVC_merge``, ``HAVC_bw_tune``, ``HAVC_auto_levels``,
   ``HAVC_retinex``, ``HAVC_rgb_denoise``, ``HAVC_adjust_rgb``,
   ``HAVC_tweak``, ``HAVC_TimeCube``, ``HAVC_recover_clip_color``,
-  ``HAVC_ColorAdjust``, ``HAVC_main_restore`` (its BlackWhiteTune part),
-  the tiles (``HAVC_clip_slice``, ``HAVC_clip_reconstruct``) and the
-  parameter setters.
+  ``HAVC_ColorAdjust`` (with ReColor), ``HAVC_main_restore``, the tiles
+  (``HAVC_clip_slice``, ``HAVC_clip_reconstruct``), ``HAVC_read_video``
+  and the parameter setters.
 
 Parameter names, packs and defaults are the JAX package's.
 
@@ -31,13 +31,14 @@ the device it ran on.  Branches that need a module not ported yet raise
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import engines, filters, presets
-from .clip import Clip
+from .clip import Clip, SceneFlags
 from .ops import chroma as chroma_ops
 from .ops import equalize, lut3d
 from .ops import merge as merge_ops
@@ -70,6 +71,9 @@ __all__ = [
     "HAVC_recover_clip_color",
     "HAVC_main_restore",
     "HAVC_ColorAdjust",
+    "HAVC_colorizer_fast",
+    "HAVC_restore_video",
+    "HAVC_read_video",
     "HAVC_set_tweak_params",
     "HAVC_set_merge_params",
     "HAVC_set_debug_level",
@@ -791,6 +795,53 @@ def _check_deepex_input(DeepExOnlyRefFrames, ScFrameDir, DeepExMethod,
         raise ValueError("HAVC_main: RefMerge cannot be used with DeepExMethod in (2, 6)")
 
 
+def _check_frame_interp(frame_interp: int) -> None:
+    """FrameInterp 1-4 interpolates with Deep-Exemplar (item 16): raise
+    before any engine runs."""
+    if 0 < frame_interp < 5:
+        raise _not_ported(f"FrameInterp={frame_interp} (Deep-Exemplar)",
+                          "item 16, DeepEx and DeepRemaster")
+
+
+def _frame_interpolation(clip: Clip, clip_ref: Clip, frame_interp: int = 5,
+                         chroma_adjust: str = "none", process_id: int = 1, batch_size: int = 8,
+                         engine_config: Optional[str] = None, device=None) -> Clip:
+    """ColorMNet between the references of ``clip_ref`` (its own flags),
+    ``frame_interp`` 5-10: ``process_id`` 1 is ``HAVC_deepex``, 2
+    ``HAVC_cmnet2`` with the dark and smooth prefilters.  ``ref_freq`` is
+    passed as the JAX package passes it, but only ref-merge reads it, and
+    ref-merge is off here."""
+    from .exemplar import HAVC_cmnet2, HAVC_deepex
+
+    common = dict(clip=clip, clip_ref=clip_ref, render_speed="medium", render_vivid=True,
+                  ref_merge=0, ref_thresh=0.10, encode_mode=0, max_memory_frames=0,
+                  ref_freq=frame_interp * 2, colormap=chroma_adjust, batch_size=batch_size,
+                  engine_config=engine_config, device=device)
+    if process_id == 1:
+        return HAVC_deepex(method=0, only_ref_frames=False, dark=False, ex_model=0,
+                           ref_norm=False, smooth=False, **common)
+    return HAVC_cmnet2(dark=True, dark_p=(0.2, 0.8), ref_norm=True, smooth=True,
+                       smooth_p=(0.3, 0.7, 0.9, 0.0, "none"), **common)
+
+
+def _colortemp_recolor(clip: Clip, clip_colored: Clip, color_temp: int, chroma_adjust: str,
+                       engine_config=None, batch_size: int = 8, device=None) -> Clip:
+    """ColorTemp: the colorized clip becomes the reference at every frame,
+    and the B&W clip is re-colored through ``HAVC_cmnet2`` with
+    ``ref_merge=color_temp``."""
+    from .exemplar import HAVC_cmnet2
+
+    ref = clip_colored.with_sc(SceneFlags.every(clip_colored.num_frames, freq=1))
+    return HAVC_cmnet2(
+        clip=clip, clip_ref=ref, render_speed="medium", render_vivid=True,
+        ref_merge=color_temp, dark=True, dark_p=(0.2, 0.8), ref_thresh=0.10,
+        encode_mode=0, max_memory_frames=0, ref_freq=0, ref_norm=True,
+        smooth=True, smooth_p=(0.3, 0.7, 0.9, 0.0, "none"),
+        colormap=chroma_adjust, engine_config=engine_config,
+        batch_size=batch_size, device=device,
+    )
+
+
 def HAVC_main_colorizer(
     clip: Clip,
     Preset: str = "Medium",
@@ -827,12 +878,16 @@ def HAVC_main_colorizer(
 ) -> Clip:
     """Main HAVC coloring function.  Classic path: HAVC_colorizer (on 2x2
     or 1x2 overlapping tiles for Placebo and VerySlow, at the tiles'
-    render factor), then the speed-tier stabilizer settings (colormap only
-    for the fast presets; dark + smooth + colormap + stab for the others).
-    DeepEx methods 0/1/2: HAVC_colorizer with scene detection makes the
-    reference frames, HAVC_deepex propagates them, then the fast
-    stabilizer settings.  DeepEx methods 3-6, FrameInterp and ColorTemp
-    raise."""
+    render factor) or, with FrameInterp 5-10, HAVC_colorizer_fast; the
+    ColorTemp re-color; then the speed-tier stabilizer settings (colormap
+    only for the fast presets; dark + smooth + colormap + stab for the
+    others).  DeepEx methods 0/1/2 (and the internal frame-interpolation
+    method): HAVC_colorizer with scene detection makes the reference
+    frames, HAVC_deepex propagates them, then the fast stabilizer
+    settings; methods 5/6 re-color from the video ``ScFrameDir`` (cut to
+    ``RefRange``) through HAVC_restore_video; methods 3/4 read the
+    reference directory ``ScFrameDir``.  DeepExModel 1/2/3 and FrameInterp
+    1-4 raise (item 16)."""
     HAVC_set_debug_level(debug_level)
     dev = resolve_device(device)
 
@@ -846,11 +901,12 @@ def HAVC_main_colorizer(
     )
     stab_enabled = not DeepExOnlyRefFrames and ColorTune.lower() != "none"
 
-    if presets.get_temp_color(ColorTemp) > 0:
-        raise _not_ported("ColorTemp re-colorization (HAVC_cmnet2)",
-                          "item 15, ColorTemp and FrameInterp")
-    if FrameInterp != 0:
-        raise _not_ported("FrameInterp (HAVC_colorizer_fast)", "item 15, ColorTemp and FrameInterp")
+    color_temp = presets.get_temp_color(ColorTemp)
+    if color_temp > 0:
+        ScMinFreq = 1  # references at every frame
+        DeepExVivid = EnableDeepEx
+    if FrameInterp > 4:
+        EnableDeepEx = False  # the two do not combine
 
     # Placebo/VerySlow tile geometry
     slices_n = 0
@@ -872,60 +928,115 @@ def HAVC_main_colorizer(
             batch_size=batch_size, device=dev, **sc,
         )
 
+    def _colorize_fast(c, do_rf, dd_rf):
+        return HAVC_colorizer_fast(
+            c, method=dd_method, mweight=ddcolor_weight,
+            deoldify_p=(do_model, do_rf, 1.0, 0.0),
+            ddcolor_p=(dd_model, dd_rf, 1.0, 0.0, enable_fp16),
+            ddtweak=tuple(dd_tweak), ddtweak_p=(DEF_TWEAK_p, hue_range),
+            frame_interp=FrameInterp, chroma_adjust=chroma_adjust, debug_level=debug_level,
+            engine_config=engine_config, batch_size=batch_size, device=dev,
+        )
+
+    def _recolor(colored):
+        with stage_timer("color_temp"):
+            return _colortemp_recolor(clip, colored, color_temp, chroma_adjust, engine_config,
+                                      batch_size, device=dev)
+
     if EnableDeepEx and DeepExMethod in (0, 1, 2, 5, 6, DEF_HAVC_METHOD_PLACEBO):
-        from .exemplar import HAVC_deepex
+        from .exemplar import HAVC_deepex, HAVC_restore_video
 
         _check_deepex_input(DeepExOnlyRefFrames, ScFrameDir, DeepExMethod,
                             ScThreshold, ScMinFreq, DeepExRefMerge)
-        if DeepExMethod in (5, 6):
-            raise _not_ported("DeepExMethod 5/6 (external reference video, HAVC_restore_video)",
-                              "item 16, DeepEx and DeepRemaster")
-        if DeepExMethod == DEF_HAVC_METHOD_PLACEBO:
-            raise _not_ported("the frame-interpolation DeepEx method",
-                              "item 15, ColorTemp and FrameInterp")
-        if DeepExModel != 0:  # before the references are colorized for nothing
+        if DeepExModel != 0 and DeepExMethod != DEF_HAVC_METHOD_PLACEBO:
+            # before the references are colorized for nothing
             raise _not_ported(f"DeepExModel={DeepExModel} (DeepEx / DeepRemaster / hybrid)",
                               "item 16, DeepEx and DeepRemaster")
+        ref_freq = ScMinFreq if ScMinFreq > 1 else 0
         if DeepExRefMerge > 0:
             ScMinFreq = 1
         ref_tresh = ScThreshold if ScThreshold is not None and 0 < ScThreshold < 1 else 0.10
-        clip_ref = _colorize(
-            clip, deoldify_rf, ddcolor_rf, sc_threshold=ScThreshold, sc_tht_offset=ScThtOffset,
-            sc_min_freq=ScMinFreq, sc_min_int=ScMinInt, sc_tht_ssim=ScThtSSIM,
-            sc_normalize=ScNormalize,
-        )
-        clip_colored = HAVC_deepex(
-            clip=clip, clip_ref=clip_ref, method=DeepExMethod, render_speed=DeepExPreset,
-            render_vivid=DeepExVivid, ref_merge=DeepExRefMerge, sc_framedir=ScFrameDir,
-            only_ref_frames=DeepExOnlyRefFrames, dark=True, dark_p=(0.2, 0.8),
-            ref_thresh=ref_tresh, ex_model=DeepExModel, encode_mode=DeepExEncMode,
-            max_memory_frames=DeepExMaxMemFrames, ref_freq=ScMinFreq, ref_norm=ScNormalize,
-            smooth=True, smooth_p=(0.3, 0.7, 0.9, 0.0, "none"), colormap=chroma_adjust,
-            engine_config=engine_config, batch_size=batch_size, device=dev,
-        )
-        # the faster stabilizer settings on the DeepEx output
-        clip_colored = HAVC_stabilizer(
-            clip_colored, stab=stab_enabled, stab_p=(3, "A", 1, 0, 0, 0),
-            colormap=chroma_adjust2, render_factor=min(deoldify_rf, ddcolor_rf),
-            batch_size=batch_size, device=dev,
-        )
-        return clip_colored.to_host() if to_host else clip_colored
-    if EnableDeepEx and DeepExMethod in (3, 4):
-        raise _not_ported("DeepExMethod 3/4 (reference directories)",
-                          "item 15, exemplar path (sc_framedir references)")
 
-    # the classic path colorizes every frame: ScThreshold only gates the
-    # DeepEx reference frames
+        if DeepExMethod in (5, 6):  # an external colored video
+            from .io.video import read_video
+
+            clip_ref = read_video(ScFrameDir, device=dev)
+            clip_s, clip_e = RefRange
+            if clip_e > 0 and 0 <= clip_s <= clip_e:
+                clip_ref = clip_ref[clip_s:clip_e]
+            clip_colored = HAVC_restore_video(
+                clip, clip_ref, method=DeepExMethod, render_speed=DeepExPreset,
+                ex_model=DeepExModel, ref_merge=DeepExRefMerge, ref_thresh=ref_tresh,
+                ref_freq=ref_freq, max_memory_frames=DeepExMaxMemFrames,
+                render_vivid=DeepExVivid, encode_mode=DeepExEncMode, ref_norm=ScNormalize,
+                engine_config=engine_config, batch_size=batch_size, device=dev,
+            )
+        else:  # HAVC references (and the internal frame-interpolation method)
+            if FrameInterp == 0 or DeepExRefMerge == 0:
+                clip_ref = _colorize(
+                    clip, deoldify_rf, ddcolor_rf, sc_threshold=ScThreshold,
+                    sc_tht_offset=ScThtOffset, sc_min_freq=ScMinFreq, sc_min_int=ScMinInt,
+                    sc_tht_ssim=ScThtSSIM, sc_normalize=ScNormalize,
+                )
+            else:
+                clip_ref = _colorize_fast(clip, deoldify_rf, ddcolor_rf)
+            if color_temp > 0:
+                clip_ref = _recolor(clip_ref)
+            if DeepExMethod == DEF_HAVC_METHOD_PLACEBO:
+                clip_colored = clip_ref
+            else:
+                clip_colored = HAVC_deepex(
+                    clip=clip, clip_ref=clip_ref, method=DeepExMethod,
+                    render_speed=DeepExPreset, render_vivid=DeepExVivid,
+                    ref_merge=DeepExRefMerge, sc_framedir=ScFrameDir,
+                    only_ref_frames=DeepExOnlyRefFrames, dark=True, dark_p=(0.2, 0.8),
+                    ref_thresh=ref_tresh, ex_model=DeepExModel, encode_mode=DeepExEncMode,
+                    max_memory_frames=DeepExMaxMemFrames, ref_freq=ScMinFreq,
+                    ref_norm=ScNormalize, smooth=True, smooth_p=(0.3, 0.7, 0.9, 0.0, "none"),
+                    colormap=chroma_adjust, engine_config=engine_config,
+                    batch_size=batch_size, device=dev,
+                )
+        if DeepExMethod != DEF_HAVC_METHOD_PLACEBO:  # the faster stabilizer settings
+            clip_colored = HAVC_stabilizer(
+                clip_colored, stab=stab_enabled, stab_p=(3, "A", 1, 0, 0, 0),
+                colormap=chroma_adjust2, render_factor=min(deoldify_rf, ddcolor_rf),
+                batch_size=batch_size, device=dev,
+            )
+        return clip_colored.to_host() if to_host else clip_colored
+
+    if EnableDeepEx and DeepExMethod in (3, 4):  # a reference directory
+        from .exemplar import HAVC_deepex
+
+        if DeepExModel == 2:
+            raise _not_ported("DeepExModel=2 with a reference directory (HAVC_DeepRemaster)",
+                              "item 16, DeepEx and DeepRemaster")
+        out = HAVC_deepex(
+            clip=clip, clip_ref=None, method=DeepExMethod, render_speed=DeepExPreset,
+            render_vivid=DeepExVivid, sc_framedir=ScFrameDir,
+            ref_merge=0 if DeepExModel != 3 else DeepExRefMerge,
+            only_ref_frames=DeepExOnlyRefFrames, dark=True, dark_p=(0.2, 0.8), smooth=True,
+            smooth_p=(0.3, 0.7, 0.9, 0.0, "none"), ex_model=DeepExModel,
+            encode_mode=DeepExEncMode, max_memory_frames=DeepExMaxMemFrames,
+            colormap=chroma_adjust, engine_config=engine_config, batch_size=batch_size,
+            device=dev,
+        )
+        return out.to_host() if to_host else out
+
+    # the classic path colorizes every frame (every FrameInterp-th with it):
+    # ScThreshold only gates the DeepEx reference frames
+    colorize = _colorize if FrameInterp == 0 else _colorize_fast
     if slices_n == 0:
-        clip_colored = _colorize(clip, deoldify_rf, ddcolor_rf)
+        clip_colored = colorize(clip, deoldify_rf, ddcolor_rf)
     else:
         with stage_timer("tiles"):
             ct = HAVC_clip_slice(clip, slices=slices_n, overlap_x=overlap_x,
                                  overlap_y=overlap_y, device=dev)
-        tiles_colored = _colorize(ct.tiles_clip, deoldify_rf_n, ddcolor_rf_n)
+        tiles_colored = colorize(ct.tiles_clip, deoldify_rf_n, ddcolor_rf_n)
         with stage_timer("tiles"):
             clip_colored = HAVC_clip_reconstruct(ct.with_tiles(tiles_colored),
                                                  chroma_resize=True, device=dev)
+    if color_temp > 0:
+        clip_colored = _recolor(clip_colored)
 
     rf = min(deoldify_rf, ddcolor_rf)
     if speed_id > 4:  # fast / faster / veryfast: colormap only
@@ -1094,15 +1205,21 @@ def HAVC_veryslow_preset(
     colorizes a hard-darkened clip (then a Medium ScaleAbs BW tune with its
     film LUT, and sat 0.95 / hue 5), the DDColor or Zhang half a lightly
     darkened one; both merged on the clip's luma at the VideoTune weight
-    with the CombMethod; then the BlackWhiteTune adjust with a hue 10 / sat
-    1.05 / cont 0.90 tweak, blended 40/60 with the merge.  FrameInterp and
-    ColorTemp raise."""
-    if FrameInterp > 0 or presets.get_temp_color(ColorTemp) > 0:
-        raise _not_ported("FrameInterp / ColorTemp in HAVC_veryslow_preset",
-                          "item 15, ColorTemp and FrameInterp")
+    with the CombMethod; then the ColorTemp re-color, or with FrameInterp
+    the passes make sparse references (the internal frame-interpolation
+    DeepEx method) and ColorMNet fills in between; then the BlackWhiteTune
+    adjust with a hue 10 / sat 1.05 / cont 0.90 tweak, blended 40/60 with
+    the merge."""
+    _check_frame_interp(FrameInterp)
     dev = resolve_device(device)
     do_name, dd_name = presets.split_color_model(ColorModel)
     clip, to_host = _on(clip, dev)
+    color_temp = presets.get_temp_color(ColorTemp)
+    interp = FrameInterp > 0
+    extra = (dict(EnableDeepEx=True, DeepExMethod=DEF_HAVC_METHOD_PLACEBO, ScThreshold=0.1,
+                  ScMinFreq=FrameInterp * 2)
+             if interp else dict(EnableDeepEx=EnableDeepEx, DeepExMethod=DeepExMethod,
+                                 ScThreshold=ScThreshold, ScMinFreq=ScMinFreq))
 
     def _pass(dark_gamma, dark_cont, model, cf, ctune, cmap):
         dark = HAVC_tweak(clip, bright=-1 / 255.0, gamma=dark_gamma, cont=dark_cont,
@@ -1110,10 +1227,9 @@ def HAVC_veryslow_preset(
         return HAVC_main_presets(
             dark, Preset=Preset, ColorModel=model, ColorTemp="none", ColorFix=cf,
             ColorTune=ctune, ColorMap=cmap, BlackWhiteTune="light", BlackWhiteMode=0,
-            BlackWhiteBlend=True, FrameInterp=0, EnableDeepEx=EnableDeepEx,
-            DeepExMethod=DeepExMethod, ScThreshold=ScThreshold, ScMinFreq=ScMinFreq,
-            RefRange=RefRange, enable_fp16=enable_fp16, debug_level=debug_level,
-            engine_config=engine_config, batch_size=batch_size, device=dev,
+            BlackWhiteBlend=True, FrameInterp=0, RefRange=RefRange, enable_fp16=enable_fp16,
+            debug_level=debug_level, engine_config=engine_config, batch_size=batch_size,
+            device=dev, **extra,
         )
 
     clip1 = clip2 = None
@@ -1141,6 +1257,18 @@ def HAVC_veryslow_preset(
                 weight=presets.get_mweight(VideoTune),
                 method=presets.get_comb_method(CombMethod), batch_size=batch_size, device=dev,
             )
+    if interp:
+        with stage_timer("frame_interp"):
+            ref = clip_colored.with_sc(SceneFlags.every(clip_colored.num_frames,
+                                                        freq=extra["ScMinFreq"]))
+            clip_colored = _frame_interpolation(
+                clip, ref, FrameInterp, chroma_adjust="300:360|0.8,0.1", process_id=2,
+                batch_size=batch_size, engine_config=engine_config, device=dev)
+    elif color_temp > 0:
+        with stage_timer("color_temp"):
+            clip_colored = _colortemp_recolor(clip, clip_colored, color_temp,
+                                              "300:360|0.8,0.1", engine_config, batch_size,
+                                              device=dev)
     with stage_timer("veryslow_adjust"):
         clip_adjusted = HAVC_ColorAdjust(
             clip_colored, BlackWhiteTune=BlackWhiteTune, BlackWhiteMode=BlackWhiteMode,
@@ -1174,18 +1302,38 @@ def HAVC_placebo_preset(
     device=None,
 ) -> Clip:
     """Placebo: HAVC_main_presets at Preset 'placebo' (2x2 tiles inside
-    HAVC_main_colorizer).  FrameInterp and ColorTemp raise."""
-    if FrameInterp != 0 or presets.get_temp_color(ColorTemp) > 0:
-        raise _not_ported("FrameInterp / ColorTemp in HAVC_placebo_preset",
-                          "item 15, ColorTemp and FrameInterp")
-    return HAVC_main_presets(
-        clip, "placebo", 0, ColorModel=ColorModel, CombMethod=CombMethod,
-        VideoTune=VideoTune, ColorFix=ColorFix, ColorTune=ColorTune, ColorMap=ColorMap,
-        ColorTemp="none", BlackWhiteTune=BlackWhiteTune, BlackWhiteMode=BlackWhiteMode,
+    HAVC_main_colorizer), then the ColorTemp re-color; with FrameInterp the
+    untiled colorizer makes references every n-th frame (the internal
+    frame-interpolation DeepEx method) and ColorMNet fills in between."""
+    dev = resolve_device(device)
+    kw = dict(
+        ColorModel=ColorModel, CombMethod=CombMethod, VideoTune=VideoTune,
+        ColorFix=ColorFix, ColorTune=ColorTune, ColorMap=ColorMap, ColorTemp="none",
+        BlackWhiteTune=BlackWhiteTune, BlackWhiteMode=BlackWhiteMode,
         BlackWhiteBlend=BlackWhiteBlend, RefRange=RefRange, enable_fp16=enable_fp16,
         debug_level=debug_level, engine_config=engine_config, batch_size=batch_size,
-        device=device,
+        device=dev,
     )
+    clip, to_host = _on(clip, dev)
+    if FrameInterp == 0:
+        out = HAVC_main_presets(clip, "placebo", 0, **kw)
+        color_temp = presets.get_temp_color(ColorTemp)
+        if color_temp > 0:
+            with stage_timer("color_temp"):
+                out = _colortemp_recolor(clip, out, color_temp, "300:360|0.8,0.1",
+                                         engine_config, batch_size, device=dev)
+        return out.to_host() if to_host else out
+    _check_frame_interp(FrameInterp)
+    ref_freq = FrameInterp * 2
+    clip_colored = HAVC_main_presets(clip, "placebo", 0, EnableDeepEx=True,
+                                     DeepExMethod=DEF_HAVC_METHOD_PLACEBO, ScThreshold=0.1,
+                                     ScMinFreq=ref_freq, **kw)
+    with stage_timer("frame_interp"):
+        ref = clip_colored.with_sc(SceneFlags.every(clip_colored.num_frames, freq=ref_freq))
+        out = _frame_interpolation(clip, ref, FrameInterp, chroma_adjust="300:360|0.8,0.1",
+                                   process_id=2, batch_size=batch_size,
+                                   engine_config=engine_config, device=dev)
+    return out.to_host() if to_host else out
 
 
 def HAVC_main(
@@ -1290,14 +1438,39 @@ def HAVC_main_restore(
     batch_size: int = 8,
     device=None,
 ) -> Clip:
-    """Main HAVC restoring function, its BlackWhiteTune part: the BW tune
-    with the per-mode hue/sat/bright/cont/gamma tweak tables.  A
-    ``clip_colored`` exemplar re-color raises (it needs
-    HAVC_restore_video)."""
+    """Main HAVC restoring function: with ``clip_colored``, the exemplar
+    re-color from it (``HAVC_restore_video``; BlackWhiteMode 6 runs the
+    MSRCP retinex on the B&W clip first) and a light RGB adjust and tweak;
+    without, the BW tune with the per-mode hue/sat/bright/cont/gamma tweak
+    tables."""
     del chroma_resize  # the stages already run at chroma resolution
+    BWTuneRetinex = BlackWhiteTune.lower() != "none" and BlackWhiteMode == 6
     if clip_colored is not None:
-        raise _not_ported("HAVC_main_restore with clip_colored (HAVC_restore_video)",
-                          "item 16, DeepEx and DeepRemaster")
+        from .exemplar import HAVC_restore_video
+
+        dev = resolve_device(device)
+        work = clip
+        if BWTuneRetinex:
+            work = HAVC_bw_tune(work, BlackWhiteTune, bw_method=5, luma_blend=BlackWhiteBlend,
+                                batch_size=batch_size, device=dev)
+            BlackWhiteTune, BlackWhiteMode = "none", 5
+        out = HAVC_restore_video(
+            work, clip_colored, method=DeepExMethod, render_speed=DeepExPreset,
+            ex_model=DeepExModel, ref_merge=DeepExRefMerge, ref_thresh=ScThreshold,
+            ref_freq=ScMinFreq, max_memory_frames=DeepExMaxMemFrames,
+            render_vivid=DeepExVivid, encode_mode=DeepExEncMode, ref_norm=ScNormalize,
+            engine_config=engine_config, batch_size=batch_size, device=dev,
+        )
+        if BWTuneRetinex:
+            return HAVC_tweak(out, hue=5.0, sat=0.95, bright=0, cont=0.98, gamma=0.98,
+                              batch_size=batch_size, device=dev)
+        if BlackWhiteTune.lower() != "none":
+            out = HAVC_adjust_rgb(out, strength=0.5, gamma=(1.0, 1.0, 0.98),
+                                  batch_size=batch_size, device=dev)
+            return HAVC_tweak(out, hue=5, sat=1.05, bright=0, cont=1.0, batch_size=batch_size,
+                              device=dev)
+        return out
+
     if BlackWhiteTune.lower() == "none":
         return clip
     dev = resolve_device(device)
@@ -1336,21 +1509,24 @@ def HAVC_ColorAdjust(
     batch_size: int = 8,
     device=None,
 ) -> Clip:
-    """HAVC color post-processing: BlackWhiteTune through
-    HAVC_main_restore, and for BlackWhiteMode 4/6 the ColorTune film-LUT
-    remap.  ``ReColor`` and ``clip_ref`` (a ColorMNet re-color) raise:
-    pass ``ReColor=False``."""
+    """HAVC color post-processing: ``ReColor`` re-colors the clip by
+    ColorMNet from itself (or from ``clip_ref``) at references on every
+    frame, with ref-merge ``DeepExRefMerge = 1 + (4 - Strength)``;
+    otherwise the BlackWhiteTune through HAVC_main_restore; and for
+    BlackWhiteMode 4/6 the ColorTune film-LUT remap."""
+    DeepExRefMerge = 1 + min(max(4 - Strength, 0), 4)
     if BlackWhiteTune.lower() == "none" and not ReColor and clip_ref is None:
         return clip
-    if ReColor or clip_ref is not None:
-        raise _not_ported("HAVC_ColorAdjust ReColor / clip_ref (HAVC_restore_video)",
-                          "item 16, DeepEx and DeepRemaster")
     dev = resolve_device(device)
+    clip_colored = None
+    if ReColor or clip_ref is not None:
+        clip_colored = clip_ref if clip_ref is not None else clip
+        clip_colored = clip_colored.with_sc(SceneFlags.every(clip_colored.num_frames, freq=1))
     tn_id = presets.get_tune_id(BlackWhiteTune)
     remap = tn_id != 0 and BlackWhiteMode in (4, 6)
     bw_tune, bw_mode = ("none", 4) if remap else (BlackWhiteTune, BlackWhiteMode)
     out = HAVC_main_restore(
-        clip, None, "medium", 0, 1 + min(max(4 - Strength, 0), 4), ScThreshold, ScMinFreq,
+        clip, clip_colored, "medium", 0, DeepExRefMerge, ScThreshold, ScMinFreq,
         ScNormalize, 0, 5, DeepExVivid, 0, BlackWhiteTune=bw_tune, BlackWhiteMode=bw_mode,
         BlackWhiteBlend=BlackWhiteBlend, chroma_resize=chroma_resize,
         engine_config=engine_config, batch_size=batch_size, device=dev,
@@ -1365,6 +1541,100 @@ def HAVC_ColorAdjust(
         out = HAVC_TimeCube(out, strength, lut3d.LUT_NAMES.index(name), batch_size=batch_size,
                             device=dev)
     return out
+
+
+# --------------------------------------------------------------------------
+# HAVC_colorizer_fast / HAVC_restore_video / HAVC_read_video
+# --------------------------------------------------------------------------
+
+
+def HAVC_colorizer_fast(
+    clip: Clip,
+    method: int = 2,
+    mweight: float = 0.4,
+    deoldify_p=(0, 24, 1.0, 0.0),
+    ddcolor_p=(1, 24, 1.0, 0.0, True),
+    ddtweak=(False, False, False),
+    ddtweak_p=(DEF_TWEAK_p, "300:360|0.8,0.1"),
+    frame_interp: int = 5,
+    chroma_adjust: str = "none",
+    debug_level: int = 0,
+    sc_min_freq: Optional[int] = None,
+    engine_config: Optional[str] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Fast colorizer: the classic engines colorize only the scene changes
+    and every ``frame_interp``-th frame (``sc_threshold`` 0.1,
+    ``sc_min_freq=frame_interp``), and ColorMNet propagates their colors
+    in between (``frame_interp`` 5-10; 1-4 would run Deep-Exemplar and
+    raise, item 16).  ``sc_min_freq`` is a legacy alias of
+    ``frame_interp``; ``engine_config`` sizes the ColorMNet engine."""
+    if sc_min_freq is not None:
+        frame_interp = sc_min_freq
+    HAVC_set_debug_level(debug_level)
+    if frame_interp not in range(1, 11):
+        raise ValueError("HAVC_colorizer_fast: frame_interp must be in range [1-10]")
+    _check_frame_interp(frame_interp)
+    dev = resolve_device(device)
+    clip, to_host = _on(clip, dev)
+    ref = HAVC_colorizer(
+        clip, method=method, mweight=mweight, deoldify_p=deoldify_p,
+        ddcolor_p=ddcolor_p, ddtweak=ddtweak, ddtweak_p=ddtweak_p,
+        sc_threshold=0.1, sc_tht_offset=1, sc_min_freq=frame_interp,
+        sc_min_int=1, sc_tht_ssim=0.0, sc_normalize=False,
+        batch_size=batch_size, device=dev,
+    )
+    with stage_timer("frame_interp"):
+        out = _frame_interpolation(clip, ref, frame_interp, chroma_adjust, process_id=1,
+                                   batch_size=batch_size, engine_config=engine_config,
+                                   device=dev)
+    return out.to_host() if to_host else out
+
+
+def HAVC_restore_video(*args, **kwargs):
+    """Re-export of ``exemplar.HAVC_restore_video``."""
+    from .exemplar import HAVC_restore_video as _restore
+
+    return _restore(*args, **kwargs)
+
+
+def HAVC_read_video(
+    source: str = None,
+    fpsnum: int = 0,
+    fpsden: int = 1,
+    width: int = 0,
+    height: int = 0,
+    return_rgb: bool = True,
+    path: Optional[str] = None,
+    device=None,
+    **kwargs,
+) -> Clip:
+    """Decode a video file into a clip of float RGB [0, 1] frames on
+    ``device`` (uploaded as bytes); ``width``/``height`` > 0 resize it
+    there with Spline36 (either alone keeps the other dimension);
+    ``fpsnum/fpsden`` forces the frame rate.  ``return_rgb=False`` is
+    accepted and the frames are RGB all the same; ``path`` is a deprecated
+    alias of ``source``; ``kwargs`` go to ``io.read_video`` (``start``,
+    ``count``)."""
+    from .io.video import read_video
+
+    if source is None:
+        source = path
+    if source is None:
+        raise ValueError("HAVC_read_video: source is required")
+    if not os.path.isfile(source):
+        raise IOError(f"HAVC: invalid clip -> {source}")
+    del return_rgb
+    dev = resolve_device(device)
+    fps_force = fpsnum / fpsden if fpsnum > 0 else None
+    clip = read_video(source, fps_force=fps_force, device=dev, **kwargs)
+    w = width if width > 0 else (clip.width if height > 0 else 0)
+    h = height if height > 0 else (clip.height if width > 0 else 0)
+    if w > 0 and h > 0 and (w != clip.width or h != clip.height):
+        with torch.inference_mode():
+            clip = clip.map_batches(lambda x: torch.clamp(resize(x, h, w, "spline36"), 0.0, 1.0))
+    return clip
 
 
 # --------------------------------------------------------------------------

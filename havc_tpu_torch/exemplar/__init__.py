@@ -1,21 +1,25 @@
 """Exemplar-based colorization: the ColorMNet engine and its API.
 
 Port of the ColorMNet part of ``havc_tpu.exemplar``: reference frames
-(HAVC-colorized scene changes) propagate their color through the clip by
-ColorMNet's memory network.  ``colormnet_propagate`` runs the key encoder
-batched over the clip, then one step per frame: memory readout, local
-window attention (the CUDA kernel on the card), decoder, gated value
-encoder and memory insert.  Everything the JAX scan decides with
-``lax.cond`` from the reference flags and the frame counter (memory
+(HAVC-colorized scene changes, a directory of images or an external
+colored video) propagate their color through the clip by ColorMNet's
+memory network.  ``colormnet_propagate`` runs the key encoder batched over
+the clip, then one step per frame: memory readout, local window attention
+(the CUDA kernel on the card), decoder, gated value encoder and memory
+insert.  Everything the JAX scan decides with ``lax.cond`` from the
+reference flags, the all-refs schedules and the frame counter (memory
 cadence, exemplar inserts, deep updates, the vivid reset) is decided here
-on the host before any device work is queued, so the loop never waits
-for the card.
+on the host before any device work is queued, so the loop never waits for
+the card.
+
+Entry points: ``HAVC_deepex`` (methods 0-6), ``HAVC_cmnet2`` and
+``HAVC_restore_video``, with ref-merge (``ref_merge`` 1-5), reference
+directories (``sc_framedir``, the ``only_ref_frames`` export) and the
+all-refs encode modes 2/3 (``exemplar/allrefs.py``).
 
 Left out (each raises ``NotImplementedError`` naming its ROADMAP item):
-DeepEx, DeepRemaster and the hybrid (``ex_model`` 1/2/3), reference
-directories and videos (``sc_framedir``, methods 3-6), the all-refs
-encode modes 2/3, ``scene_parallel``, ref-merge and ``only_ref_frames``
-export.
+DeepEx, DeepRemaster and the hybrid (``ex_model`` 1/2/3, item 16) and
+``scene_parallel`` (the scene-batched scan, item 18).
 """
 from __future__ import annotations
 
@@ -26,19 +30,23 @@ import numpy as np
 import torch
 
 from ..api import _not_ported
-from ..clip import Clip
+from ..clip import Clip, SceneFlags
 from ..engines import registry
 from ..filters import chroma_bright_tweak, colormap_filter, dark_tweak, recover_clip_luma
+from ..io.video import export_reference_frames, read_reference_dir
 from ..models import colormnet as cm
 from ..models import memory as mem
 from ..ops.colorspace import lab_to_rgb, rgb_to_lab
-from ..ops.resize import smart_resize_pad, smart_resize_restore
+from ..ops.resize import resize, smart_resize_pad, smart_resize_restore
 from ..presets import get_colormap
+from ..scene.detect import scene_detect
 from ..utils.profiling import resolve_device, stage_timer
+from .allrefs import allrefs_feed_schedule, allrefs_step_schedule
 
 __all__ = [
     "HAVC_deepex",
     "HAVC_cmnet2",
+    "HAVC_restore_video",
     "ColorMNetEngine",
     "colormnet_propagate",
     "resolve_engine_config",
@@ -55,6 +63,9 @@ DEEPEX_SIZES = {
 }
 
 ENC_BATCH = 8  # frames per batched key-encoder call
+
+# DeepExRefMerge / ref_merge level -> weight of the reference in the blend
+REFMERGE_WEIGHT = [0.0, 0.3, 0.4, 0.5, 0.6, 0.7]
 
 
 def resolve_engine_config(requested: Optional[str] = None) -> str:
@@ -147,9 +158,9 @@ def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Ten
                 ref_frames: torch.Tensor, ref_idx):
     """pad112 in normalised-LAB space and the batched key encoder.
 
-    Returns the per-frame inputs (NCHW with leading T), the exemplar's
-    (only for the frames ``ref_idx``, or None) and the unpad geometry
-    ``(lh, lw, fh, fw)``."""
+    Returns the per-frame inputs (NCHW with leading T), the exemplars'
+    (only for the reference frames ``ref_idx``, in that order, or None)
+    and the unpad geometry ``(lh, lw, fh, fw)``."""
     fh, fw = int(frames.shape[1]), int(frames.shape[2])
     if fh > engine.h or fw > engine.w:
         raise ValueError(f"frames {fh}x{fw} exceed engine work size {engine.h}x{engine.w}"
@@ -170,32 +181,34 @@ def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Ten
         return [torch.cat([o[i] for o in outs]) for i in range(6)]
 
     frames_l3 = l3(frames)
+    rab = torch.nn.functional.pad(ref_ab.permute(0, 3, 1, 2), pads)
     with stage_timer("cm_key_encoder"):
         g16, g8, g4, key, shrink, sel = encode(frames_l3)
         ref_pre = None
         if ref_idx is not None and len(ref_idx):
             refs_l3 = l3(torch.cat([ref_frames[i:i + 1] for i in ref_idx]))
             rg16, _, _, rkey, rshrink, rsel = encode(refs_l3)
-            ref_pre = (refs_l3, rg16, rkey, rshrink, rsel)
-    rab = torch.nn.functional.pad(ref_ab.permute(0, 3, 1, 2), pads)
+            ref_pre = (refs_l3, rg16, rkey, rshrink, rsel,
+                       torch.cat([rab[i:i + 1] for i in ref_idx]))
     return (frames_l3, g16, g8, g4, key, shrink, sel, rab), ref_pre, (lh, lw, fh, fw)
 
 
 def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool):
-    """The per-frame InferenceCore step ``step(carry, x, ref) -> (carry,
-    ab)``: ``x`` holds the frame's precomputed inputs, ``ref`` the
-    exemplar's (or None), ``ab`` is the (2, H, W) prediction.  Every
-    branch is taken on the host from the reference flag and the carry's
-    frame counters."""
+    """The per-frame InferenceCore step ``step(carry, x, ref, reset) ->
+    (carry, ab)``: ``x`` holds the frame's precomputed inputs and its
+    reference flag, ``ref`` the exemplar's (or None), ``reset`` says whether
+    a vivid run rebuilds the core first; ``ab`` is the (2, H, W)
+    prediction.  Every branch is taken on the host from the flags and the
+    carry's frame counters."""
     cfg = engine.mem_cfg
     h16, w16 = engine.g16_hw
     P, Cv = h16 * w16, engine.value_dim
     net = engine.net
     exemplar_insert = (not frame_propagate) or vivid
 
-    def step(carry, x, ref):
+    def step(carry, x, ref, reset):
         frame_l3, g16, g8, g4, key, shrink, sel, rab, ref_flag = x
-        if vivid and ref_flag:  # the whole InferenceCore is rebuilt
+        if vivid and reset:  # the whole InferenceCore is rebuilt
             carry = _cm_init_carry(engine)
         state, hidden, last_key, last_value, frame_idx, last_mem_t = carry
         qk, qe = _tokens(key)[0], _tokens(sel)[0]
@@ -207,8 +220,8 @@ def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool):
         normal_upd = not is_mem
 
         if exem:  # insert the exemplar's own key and value first
-            ref_l3, rg16, rkey, rshrink, rsel = ref
-            rvalue, _ = net.value_encoder(ref_l3, rg16, torch.zeros_like(hidden), rab,
+            ref_l3, rg16, rkey, rshrink, rsel, ref_rab = ref
+            rvalue, _ = net.value_encoder(ref_l3, rg16, torch.zeros_like(hidden), ref_rab,
                                           deep_update=False)
             state = mem.insert_working(state, cfg, _tokens(rkey)[0], rshrink.reshape(P),
                                        _tokens(rsel)[0], _tokens(rvalue), True)
@@ -250,6 +263,8 @@ def colormnet_propagate(
     vivid: bool = False,  # rebuild the whole memory at every reference
     resume_state=None,  # carry of a previous chunk
     return_state: bool = False,
+    feed_schedule=None,  # (T,) all-refs feed order: reference frame fed at each step, -1 none
+    reset_schedule=None,  # (T,) all-refs core rebuilds
 ):
     """Run the clip through the memory network: (T, H, W, 2) normalised ab,
     a tensor on the engine's device.
@@ -262,16 +277,37 @@ def colormnet_propagate(
     outputs the prediction.  A memory frame every ``mem_every`` frames and
     on every reference; ``vivid`` rebuilds the whole carry at each
     reference.  ``return_state`` also returns the carry, which
-    ``resume_state`` continues from (the state is updated in place)."""
+    ``resume_state`` continues from (the state is updated in place).
+
+    ``feed_schedule``/``reset_schedule`` are the all-refs mode (encode
+    modes 2/3; make them with ``allrefs.allrefs_feed_schedule`` and
+    ``allrefs.allrefs_step_schedule``): step ``n`` inserts reference frame
+    ``feed[n]`` as an exemplar (none where -1), the core is rebuilt where
+    ``reset[n]``, and ``is_ref``, ``frame_propagate`` and ``vivid`` are not
+    read."""
     dev = engine.device
-    exemplar_insert = (not frame_propagate) or vivid
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev)  # noqa: E731
     frames = as_t(frames)
     ref_frames = frames if ref_frames is None else as_t(ref_frames)
-    is_ref = np.asarray(is_ref.cpu() if isinstance(is_ref, torch.Tensor) else is_ref).astype(bool)
-    # the exemplar's own key and value are encoded only where it is inserted
-    ref_idx = np.nonzero(is_ref)[0] if exemplar_insert else None
-    ref_pos = {int(t): i for i, t in enumerate(ref_idx)} if exemplar_insert else {}
+    if feed_schedule is not None:
+        src = np.asarray(feed_schedule, np.int64)  # the reference frame of each step
+        if len(src) != len(frames):
+            raise ValueError("feed_schedule length must match frames")
+        reset = (np.zeros(len(src), bool) if reset_schedule is None
+                 else np.asarray(reset_schedule).astype(bool))
+        is_ref = src >= 0
+        frame_propagate = False  # fed refs are always exemplar inserts
+        vivid = bool(reset.any())  # the rebuild follows the reset flag
+    else:
+        is_ref = np.asarray(is_ref.cpu() if isinstance(is_ref, torch.Tensor) else is_ref)
+        is_ref = is_ref.astype(bool)
+        src, reset = np.arange(len(is_ref)), is_ref
+    exemplar_insert = (not frame_propagate) or vivid
+    # the exemplars' own keys and values are encoded once per reference
+    # frame inserted (the feed repeats frames), in one batched pass
+    ref_idx = np.unique(src[is_ref]) if exemplar_insert else None
+    ref_pos = ({int(t): int(np.searchsorted(ref_idx, src[t])) for t in np.nonzero(is_ref)[0]}
+               if exemplar_insert else {})
     step = _build_cm_step(engine, vivid, frame_propagate)
 
     with torch.inference_mode():
@@ -283,7 +319,8 @@ def colormnet_propagate(
             for t in range(len(is_ref)):
                 r = ref_pos.get(t)
                 ref = None if r is None else tuple(a[r:r + 1] for a in ref_pre)
-                carry, ab = step(carry, tuple(a[t:t + 1] for a in xs) + (bool(is_ref[t]),), ref)
+                carry, ab = step(carry, tuple(a[t:t + 1] for a in xs) + (bool(is_ref[t]),), ref,
+                                 bool(reset[t]))
                 outs.append(ab)
         ab = torch.stack(outs).permute(0, 2, 3, 1)[:, lh:lh + fh, lw:lw + fw]
     if return_state:
@@ -314,24 +351,40 @@ def _restore_full(clip: Clip, colored_small: torch.Tensor, meta, batch_size: int
     return clip.with_frames(torch.cat(outs))
 
 
-def _prefilter_refs(ref_frames: torch.Tensor, dark, dark_p, smooth, smooth_p, colormap):
-    """Reference-frame pre-filters: dark tweak, chroma smoothing, colormap."""
-    x = ref_frames
-    if dark:
-        x = dark_tweak(x, dark_threshold=dark_p[0], dark_amount=dark_p[1])
-    if smooth:
-        x = chroma_bright_tweak(x, black_threshold=smooth_p[0], white_threshold=smooth_p[1],
-                                dark_sat=smooth_p[2], dark_bright=-smooth_p[3])
-    if colormap not in ("none", ""):
-        x = colormap_filter(x, get_colormap(colormap, "light") if "->" in colormap else colormap)
-    return x
+def _prefilter_refs(ref_frames: torch.Tensor, dark, dark_p, smooth, smooth_p, colormap,
+                    batch_size: int) -> torch.Tensor:
+    """Reference-frame pre-filters (dark tweak, chroma smoothing, colormap),
+    ``batch_size`` frames at a time on the frames' device."""
+    if not (dark or smooth or colormap not in ("none", "")):
+        return ref_frames
+    cmap = get_colormap(colormap, "light") if "->" in colormap else colormap
+
+    def prefilter(x):
+        if dark:
+            x = dark_tweak(x, dark_threshold=dark_p[0], dark_amount=dark_p[1])
+        if smooth:
+            x = chroma_bright_tweak(x, black_threshold=smooth_p[0], white_threshold=smooth_p[1],
+                                    dark_sat=smooth_p[2], dark_bright=-smooth_p[3])
+        if colormap not in ("none", ""):
+            x = colormap_filter(x, cmap)
+        return x
+
+    return torch.cat([prefilter(ref_frames[s:s + batch_size])
+                      for s in range(0, ref_frames.shape[0], batch_size)])
 
 
 def _exemplar_dispatch(clip: Clip, ref_frames: torch.Tensor, is_ref: np.ndarray,
                        render_speed: str, frame_propagate: bool, render_vivid: bool,
-                       max_memory_frames: int, engine_config: str, dev: torch.device):
-    """Work-size prep -> ColorMNet propagation -> LAB join: the colored
-    frames at work size and the pad geometry."""
+                       ref_weight: float, merge_enabled: bool, max_memory_frames: int,
+                       engine_config: str, dev: torch.device, use_all_refs: bool = False):
+    """Work-size prep -> ColorMNet propagation -> LAB join -> ref-merge
+    blend: the colored frames at work size and the pad geometry.
+
+    ``use_all_refs`` (encode modes 2/3) feeds the scene-change references
+    in the all-refs look-ahead order (``exemplar/allrefs.py``)
+    instead of at their own frames.  With ``merge_enabled`` the frames
+    that are not references are blended with their reference,
+    ``color * (1 - ref_weight) + ref * ref_weight``."""
     wh, ww = smart_resize_shape(clip.width, clip.height, render_speed)
     with stage_timer("cm_work_resize"):  # aspect-preserving SmartResize
         work_frames, pad_meta = smart_resize_pad(clip.frames, wh, ww, "spline64")
@@ -344,12 +397,54 @@ def _exemplar_dispatch(clip: Clip, ref_frames: torch.Tensor, is_ref: np.ndarray,
         kw["max_mem"] = int(max_memory_frames)
     engine = _get_engine(**kw)
     ref_ab = torch.clamp(rgb_to_lab(work_refs)[..., 1:3] / 110.0, -1.0, 1.0)
-    ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
-                             frame_propagate=frame_propagate, vivid=render_vivid)
+    if use_all_refs:
+        eff, reset = allrefs_step_schedule(
+            allrefs_feed_schedule(is_ref), vid_length=len(work_frames),
+            reset_on_ref_update=render_vivid, max_memory_frames=max_memory_frames)
+        ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
+                                 feed_schedule=eff, reset_schedule=reset)
+    else:
+        ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
+                                 frame_propagate=frame_propagate, vivid=render_vivid)
     with stage_timer("cm_join"):
         lab = torch.cat([rgb_to_lab(work_frames)[..., 0:1], ab * 110.0], dim=-1)
         colored_small = torch.clamp(lab_to_rgb(lab), 0.0, 1.0)
+    if merge_enabled and 0.0 < ref_weight < 1.0:
+        with stage_timer("cm_ref_merge"):  # the references pass through unblended
+            blend = colored_small * (1.0 - ref_weight) + work_refs * ref_weight
+            for t in np.nonzero(is_ref)[0]:
+                blend[t] = colored_small[t]
+            colored_small = blend
     return colored_small, pad_meta
+
+
+def _dir_references(clip: Clip, clip_ref: Optional[Clip], dir_refs: dict, method: int) -> Clip:
+    """The reference clip of ``sc_framedir`` images, each Lanczos-resized to
+    the clip's size on the clip's device.  Methods 3/4 (no ``clip_ref``):
+    the directory alone, on the clip's own frames; methods 1/2: the
+    directory overrides and extends the HAVC references.  Methods 2 and 4
+    mark the directory frames as external (``sc_next``)."""
+    T, dev = clip.num_frames, clip.frames.device
+    base = clip if clip_ref is None else clip_ref.to_device(dev)
+    frames = base.frames.clone()
+    for n, img in dir_refs.items():
+        if n < T:
+            frames[n] = resize(torch.from_numpy(img).to(dev), clip.height, clip.width, "lanczos")
+    if clip_ref is None:
+        flags = SceneFlags.from_frame_list(T, sorted(dir_refs))
+        if method == 4:
+            flags.sc_next[flags.sc_prev.astype(bool)] = 1
+        return clip.with_frames(frames).with_sc(flags)
+    flags = base.sc
+    sc_prev, sc_next = flags.sc_prev.copy(), flags.sc_next.copy()
+    for n in dir_refs:
+        if n < T:
+            sc_prev[n] = 1
+            if method == 2:  # external refs propagate as exemplar inserts
+                sc_next[n] = 1
+    flags = SceneFlags(sc_prev=sc_prev, sc_next=sc_next, luma=flags.luma, ratio=flags.ratio,
+                       threshold=flags.threshold, frequency=flags.frequency)
+    return base.with_frames(frames).with_sc(flags)
 
 
 @torch.inference_mode()
@@ -384,12 +479,26 @@ def HAVC_deepex(
     frame_mindim: int = 320,
     device=None,
 ) -> Clip:
-    """Exemplar-based colorization of ``clip`` from the HAVC-colorized
-    ``clip_ref`` and its scene-change flags, with ColorMNet (``ex_model``
-    0).  ``method`` 0 = refs same as video, 1 = + RF same as video, 2 = +
-    RF different (the exemplar's own key/value is inserted).  Same
-    parameters and defaults as the JAX package's, plus ``device``."""
-    del ref_norm, enable_resize, scene_mesh, frame_mindim
+    """Exemplar-based colorization with ColorMNet (``ex_model`` 0).
+
+    ``method``: 0 = HAVC refs same as video, 1 = + RF same as video, 2 = +
+    RF different, 3 = external RF same as video, 4 = external RF
+    different, 5/6 = external ClipRef same/different (delegated to
+    ``HAVC_restore_video``).  Methods 0-2 take ``clip_ref`` (HAVC-colorized,
+    flags attached); with ``sc_framedir`` the directory's ``ref_nnnnnn``
+    images override and extend its references (methods 1/2) or are the
+    only ones (methods 3/4).  "Different" methods insert the exemplar's
+    own key and value.  ``only_ref_frames`` returns the references (and
+    with ``sc_framedir`` and method 0 exports them there).
+
+    ``ref_merge`` 1-5 (references at every frame, ``sc_frequency`` 1): a
+    separate scene detection of the video at ``ref_thresh``/``ref_freq``/
+    ``ref_norm`` picks the propagation references, and the other frames
+    are blended with their reference at ``REFMERGE_WEIGHT[ref_merge]``.
+    ``encode_mode`` 2/3 feed the references in the all-refs look-ahead
+    order.  Same parameters and defaults as the JAX package's, plus
+    ``device``."""
+    del enable_resize, scene_mesh, frame_mindim
     if clip is None:
         raise ValueError("HAVC_deepex: clip is required")
     if vivid is not None:
@@ -415,48 +524,73 @@ def HAVC_deepex(
         raise ValueError(f"HAVC_deepex: method {method} requires clip_ref (external video)")
     if clip_ref is None and sc_framedir is None:
         raise ValueError("HAVC_deepex: no reference source (clip_ref/sc_framedir)")
-
     if ex_model != 0:
         raise _not_ported(f"HAVC_deepex ex_model={ex_model} (DeepEx / DeepRemaster / hybrid)",
-                          "exemplar path, DeepEx and DeepRemaster")
-    if method in (3, 4, 5, 6) or (sc_framedir is not None and method in (1, 2)):
-        raise _not_ported("reference directories and videos (sc_framedir, methods 3-6)",
-                          "streaming, io/")
-    if encode_mode in (2, 3):
-        raise _not_ported("the all-refs encode modes 2/3 (exemplar/allrefs.py)",
-                          "exemplar path, ColorMNet")
+                          "item 16, DeepEx and DeepRemaster")
+
+    if method in (5, 6):  # an external colored clip
+        return HAVC_restore_video(
+            clip, clip_ref, method=method, render_speed=render_speed, ex_model=ex_model,
+            ref_merge=ref_merge, ref_weight=ref_weight, ref_thresh=ref_thresh,
+            ref_freq=ref_freq, ref_norm=ref_norm, max_memory_frames=max_memory_frames,
+            render_vivid=render_vivid, encode_mode=encode_mode, engine_config=engine_config,
+            batch_size=batch_size, device=device,
+        )
     if scene_parallel:
-        raise _not_ported("scene_parallel (colormnet_propagate_scenes)", "exemplar path, ColorMNet")
-    if clip_ref.sc is None:
+        raise _not_ported("scene_parallel (colormnet_propagate_scenes)",
+                          "item 18, parallel/mesh.py")
+
+    if clip_ref is not None and clip_ref.sc is None:
         raise ValueError(
             "HAVC_deepex: reference clip has no scene-change flags "
             "(run HAVC_colorizer with sc_threshold/sc_min_freq or HAVC_SceneDetect)"
         )
-    if only_ref_frames:
-        if sc_framedir is not None:
-            raise _not_ported("only_ref_frames export to sc_framedir", "streaming, io/")
-        return clip_ref
-    if ref_merge > 0 and int(getattr(clip_ref.sc, "frequency", 0) or 0) == 1:
-        raise _not_ported("ref_merge > 0 (DeepExRefMerge)", "exemplar path, ColorMNet")
-    del ref_weight, ref_thresh, ref_freq  # only read by ref-merge
-
     dev = resolve_device(device)
     to_host = not clip.on_device
     clip = clip.to_device(dev)
-    is_ref = clip_ref.sc.sc_prev.astype(bool).copy()
+    dir_refs = None
+    if sc_framedir is not None and method in (1, 2, 3, 4):
+        dir_refs = read_reference_dir(sc_framedir)
+        if clip_ref is None or method in (1, 2):  # else the directory is not read
+            clip_ref = _dir_references(clip, clip_ref, dir_refs, method)
+    if only_ref_frames:
+        if sc_framedir is not None and method == 0:
+            export_reference_frames(clip_ref, sc_framedir)
+        return clip_ref.to_host() if to_host else clip_ref
+
+    # ref-merge needs references at every frame (sc_frequency 1); the
+    # propagation references come from a separate detection of the video
+    enable_refmerge = ref_merge > 0 and int(getattr(clip_ref.sc, "frequency", 0) or 0) == 1
+    if enable_refmerge:
+        if ref_weight is None:
+            ref_weight = REFMERGE_WEIGHT[ref_merge]
+        if ref_thresh is None:
+            ref_thresh = 0.10
+        if ref_freq is None or ref_freq == 1:
+            ref_freq = 0
+        with stage_timer("cm_scene_detect"):
+            is_ref = scene_detect(clip.frames, threshold=ref_thresh, frequency=ref_freq,
+                                  normalize=ref_norm).sc_prev.astype(bool).copy()
+        if dir_refs is not None and method in (1, 2):
+            for n in dir_refs:
+                if n < len(is_ref):
+                    is_ref[n] = True
+    else:
+        ref_weight = 1.0
+        is_ref = clip_ref.sc.sc_prev.astype(bool).copy()
     if len(is_ref) and not is_ref[0]:
         is_ref[0] = True
     with stage_timer("cm_prefilter"):
         ref_frames = _prefilter_refs(clip_ref.to_device(dev).frames, dark, dark_p, smooth,
-                                     smooth_p, colormap)
+                                     smooth_p, colormap, batch_size)
     # "same as video" methods propagate the video's own colorized frames;
     # "different" methods insert the exemplar's own key/value
     frame_propagate = method in (0, 1, 3, 5)
     if max_memory_frames > 0:
         render_vivid = False  # a bounded memory cannot survive resets
     colored_small, pad_meta = _exemplar_dispatch(
-        clip, ref_frames, is_ref, render_speed, frame_propagate, render_vivid,
-        max_memory_frames, engine_config, dev)
+        clip, ref_frames, is_ref, render_speed, frame_propagate, render_vivid, ref_weight,
+        enable_refmerge, max_memory_frames, engine_config, dev, encode_mode in (2, 3))
     with stage_timer("cm_restore"):
         out = _restore_full(clip, colored_small, pad_meta, batch_size).with_sc(clip_ref.sc)
     return out.to_host() if to_host else out
@@ -492,3 +626,90 @@ def HAVC_cmnet2(
         ref_freq=ref_freq, ex_model=0, encode_mode=encode_mode,
         max_memory_frames=max_memory_frames, torch_dir=torch_dir, device=device, **kwargs,
     )
+
+
+@torch.inference_mode()
+def HAVC_restore_video(
+    clip: Clip = None,
+    clip_ref: Clip = None,
+    method: int = 6,
+    render_speed: str = "medium",
+    ex_model: int = 0,
+    ref_merge: int = 0,
+    ref_weight: Optional[float] = None,
+    ref_thresh: Optional[float] = None,
+    ref_freq: Optional[int] = None,
+    ref_norm: bool = False,
+    max_memory_frames: int = 0,
+    render_vivid: bool = True,
+    encode_mode: int = 0,
+    encode_first: bool = True,
+    torch_dir: Optional[str] = None,
+    engine_config: Optional[str] = None,
+    batch_size: int = 8,
+    frame_mindim: int = 320,
+    device=None,
+) -> Clip:
+    """Re-colorize a B&W clip from an externally colored one: both are cut
+    to the shorter length, the reference is resized (Spline36) to the
+    clip's size, scene-detected, and its frames are inserted as exemplars
+    (``frame_propagate=False``).  ``ref_merge`` > 0 with method 5: the
+    reference stands at every frame, the detection gives the propagation
+    references, and the other frames are blended with the reference at
+    ``REFMERGE_WEIGHT[ref_merge]``.  ``encode_first`` chose one of two
+    servers in the reference implementation and changes nothing here.
+    Same parameters and defaults as the JAX package's, plus ``device``."""
+    del encode_first, frame_mindim
+    if clip is None or clip_ref is None:
+        raise ValueError("HAVC_restore_video: clip and clip_ref are required")
+    if method not in (5, 6):
+        raise ValueError("HAVC: Video restore is supported only with methods: 5, 6")
+    if torch_dir is not None:
+        from ..engines import set_weights_dir
+
+        set_weights_dir(torch_dir)
+    engine_config = resolve_engine_config(engine_config)
+    if ex_model != 0:
+        raise _not_ported(f"HAVC_restore_video ex_model={ex_model} (DeepEx / DeepRemaster / "
+                          "hybrid)", "item 16, DeepEx and DeepRemaster")
+    dev = resolve_device(device)
+    to_host = not clip.on_device
+    clip, clip_ref = clip.to_device(dev), clip_ref.to_device(dev)
+
+    if clip_ref.num_frames != clip.num_frames:
+        t = min(clip_ref.num_frames, clip.num_frames)
+        clip, clip_ref = clip[:t], clip_ref[:t]
+    if (clip_ref.height, clip_ref.width) != (clip.height, clip.width):
+        with stage_timer("cm_ref_resize"):
+            clip_ref = clip_ref.map_batches(
+                lambda x: resize(x, clip.height, clip.width, "spline36"), batch_size)
+
+    if ref_thresh is None or ref_thresh == 0:
+        ref_thresh = 0.10
+    ref_freq = ref_freq or 0
+    # the propagation references come from a detection of the colored
+    # reference; with ref-merge the reference's flags are every frame
+    with stage_timer("cm_scene_detect"):
+        detected = scene_detect(clip_ref.frames, threshold=ref_thresh, frequency=ref_freq,
+                                normalize=ref_norm)
+    merge_enabled = not (ref_merge == 0 or method == 6)
+    if merge_enabled:
+        if ref_weight is None or ref_weight == 0:
+            ref_weight = REFMERGE_WEIGHT[ref_merge]
+        flags = SceneFlags.every(clip_ref.num_frames, freq=1)
+    else:
+        ref_weight = 1.0
+        flags = detected
+    is_ref = detected.sc_prev.astype(bool).copy()
+    if len(is_ref) and not is_ref[0]:
+        is_ref[0] = True
+    clip_ref = clip_ref.with_sc(flags)
+    if max_memory_frames > 0:
+        render_vivid = False  # a bounded memory cannot survive resets
+
+    colored_small, pad_meta = _exemplar_dispatch(
+        clip, clip_ref.frames, is_ref, render_speed, False, render_vivid, ref_weight,
+        merge_enabled, max_memory_frames, engine_config, dev, encode_mode in (2, 3))
+    with stage_timer("cm_restore"):
+        out = _restore_full(clip, colored_small, pad_meta, batch_size).with_sc(clip_ref.sc)
+    return out.to_host() if to_host else out

@@ -19,11 +19,20 @@ pixel gathers the two LUT entries it needs from the flat table at index
 bin rule is the JAX package's truncating ``int(x * 255)``, and the LUT
 lookup is its floor-and-interpolate ``_lut_apply`` operation for
 operation.
+
+The CLAHE tile coordinates ``(i + 0.5) / t - 0.5`` are computed as XLA
+computes them under ``jax.jit`` (the way the JAX package's BW tune runs):
+one fused multiply-add by float32(1/t), rounded once.  At an odd tile size
+the first tile's centre then lands just below 0 (-8.8e-9 at t = 135, the
+tile height of 1080p), so its row takes the second tile's LUT; an exact
+division would give 0 and the first tile's.
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -112,6 +121,17 @@ def _clahe_luts(hist: torch.Tensor, npix: int, clip_limit: float, nbins: int = 2
     return torch.clamp((cdf - cdf[..., :1]) / torch.clamp(npix - cdf[..., :1], min=1.0), 0.0, 1.0)
 
 
+@functools.lru_cache(maxsize=64)
+def _tile_coords(n: int, t: int, device: torch.device) -> torch.Tensor:
+    """Tile-space coordinates ``(i + 0.5) / t - 0.5`` of ``n`` pixels as
+    XLA's ``fma(i + 0.5, float32(1/t), -0.5)``: the float64 product and
+    difference are exact, so one rounding to float32 equals the fma's.
+    Made once per (n, t, device): no host copy inside a frame loop."""
+    i = np.arange(n, dtype=np.float64)
+    c = (i + 0.5) * np.float64(np.float32(1.0 / t)) - 0.5
+    return torch.from_numpy(c.astype(np.float32)).to(device)
+
+
 def clahe_channel(x: torch.Tensor, clip_limit: float = 2.0, gridsize: int = 8) -> torch.Tensor:
     """CLAHE on single-channel images ``(..., H, W)`` in [0,1]: per-tile
     clipped histograms -> per-tile LUTs; each pixel is mapped through the
@@ -134,8 +154,9 @@ def clahe_channel(x: torch.Tensor, clip_limit: float = 2.0, gridsize: int = 8) -
     luts = _clahe_luts(hist, th * tw, clip_limit).reshape(-1)
 
     # bilinear interpolation between tile mappings
-    yy = (torch.arange(h, device=dev, dtype=torch.float32) + 0.5) / th - 0.5
-    xx = (torch.arange(w, device=dev, dtype=torch.float32) + 0.5) / tw - 0.5
+    # (the top and left half-tiles blend toward tile 1: y0 is clamped
+    # before y1 = y0 + 1 is formed, the JAX package's convention)
+    yy, xx = _tile_coords(h, th, dev), _tile_coords(w, tw, dev)
     y0 = torch.clamp(torch.floor(yy).to(torch.int64), 0, gh - 1)
     x0 = torch.clamp(torch.floor(xx).to(torch.int64), 0, gw - 1)
     y1 = torch.clamp(y0 + 1, 0, gh - 1)

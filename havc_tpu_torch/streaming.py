@@ -715,7 +715,7 @@ def HAVC_restore_video_streaming(
         raise ValueError(f"HAVC_restore_video_streaming: unsupported ex_model {ex_model}")
     if ex_model != 0:
         raise _not_ported(f"HAVC_restore_video_streaming ex_model={ex_model} (DeepEx, "
-                          "DeepRemaster, the hybrid)", "exemplar path, DeepEx and DeepRemaster")
+                          "DeepRemaster, the hybrid)", "item 16, DeepEx and DeepRemaster")
     if sink not in ("video", "null", "device"):
         raise ValueError(f"HAVC_restore_video_streaming: unknown sink {sink!r}")
     del frame_mindim  # DeepRemaster's geometry

@@ -238,11 +238,13 @@ def test_color_adjust(tune, mode):
 
 
 def test_unported_restore_options_raise():
+    """A re-color by DeepEx or DeepRemaster names ROADMAP item 16 (ColorMNet,
+    DeepExModel 0, is ported)."""
     clip = havc_tpu_torch.Clip(frames=_clip())
     with pytest.raises(NotImplementedError, match="item 16"):
-        tapi.HAVC_ColorAdjust(clip, device="cpu")  # ReColor=True by default
+        tapi.HAVC_main_restore(clip, clip, DeepExModel=1, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
-        tapi.HAVC_main_restore(clip, clip, device="cpu")
+        tapi.HAVC_restore_video(clip, clip, ex_model=2, device="cpu")
 
 
 def test_setters_change_the_shared_packs():
@@ -277,9 +279,6 @@ NOT_PORTED = {
     "HAVC_export_list_frames": "13 (the reference-frame export helpers)",
     "HAVC_ddeoldify": "13 (the legacy wrappers)",
     "HAVC_cmnet": "13 (the legacy wrappers)",
-    "HAVC_read_video": "12 (io/formats.py)",
-    "HAVC_colorizer_fast": "15 (FrameInterp)",
-    "HAVC_restore_video": "16 (DeepEx and DeepRemaster)",
     "HAVC_DeepRemaster": "16 (DeepEx and DeepRemaster)",
 }
 MODULES = ("api.py", "streaming.py", os.path.join("exemplar", "__init__.py"))

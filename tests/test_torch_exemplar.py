@@ -496,11 +496,17 @@ def test_deepex_defaults_to_cuda():
             fn(havc_tpu_torch.Clip(frames=frames), ref)
 
 
-@pytest.mark.parametrize("kw", [dict(ex_model=1), dict(ex_model=2), dict(encode_mode=2),
-                                dict(scene_parallel=True), dict(method=3, sc_framedir="refs")],
-                         ids=["deepex", "remaster", "allrefs", "scene_parallel", "framedir"])
-def test_unported_exemplar_options_raise(kw):
+@pytest.mark.parametrize("fn,kw", [("HAVC_deepex", dict(ex_model=1)),
+                                   ("HAVC_deepex", dict(ex_model=2)),
+                                   ("HAVC_deepex", dict(ex_model=3)),
+                                   ("HAVC_deepex", dict(scene_parallel=True)),
+                                   ("HAVC_restore_video", dict(ex_model=1))],
+                         ids=["deepex", "remaster", "hybrid", "scene_parallel", "restore_deepex"])
+def test_unported_exemplar_options_raise(fn, kw):
+    """DeepEx, DeepRemaster and the hybrid name ROADMAP item 16,
+    ``scene_parallel`` item 18."""
     frames = _scene_clip(n_scenes=1, per=2, h=32, w=32)
     ref = havc_tpu_torch.Clip(frames=frames).with_sc(havc_tpu_torch.SceneFlags.every(2, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        havc_tpu_torch.HAVC_deepex(havc_tpu_torch.Clip(frames=frames), ref, device="cpu", **kw)
+    item = "item 18" if kw.get("scene_parallel") else "item 16"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {item}"):
+        getattr(havc_tpu_torch, fn)(havc_tpu_torch.Clip(frames=frames), ref, device="cpu", **kw)

@@ -195,10 +195,12 @@ def test_havc_main_without_cuda_raises():
 
 
 def test_unported_branches_raise():
+    """DeepEx and FrameInterp 1-4 (Deep-Exemplar) name ROADMAP item 16."""
     clip = havc_tpu_torch.Clip(frames=_gray_clip())
     for kw in (dict(EnableDeepEx=True, DeepExModel=1), dict(FrameInterp=1),
-               dict(ColorTemp="Medium"), dict(Preset="Placebo", FrameInterp=1)):
-        with pytest.raises(NotImplementedError):
+               dict(FrameInterp=4), dict(Preset="Placebo", FrameInterp=1),
+               dict(Preset="VerySlow", FrameInterp=2)):
+        with pytest.raises(NotImplementedError, match="item 16"):
             havc_tpu_torch.HAVC_main(clip, device="cpu", **kw)
 
 
@@ -214,7 +216,8 @@ def test_port_imports_neither_jax_nor_havc_tpu():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'havc_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
         "new = ['havc_tpu_torch.ops.' + m for m in ('equalize', 'retinex', 'lut3d', 'tiles')]\n"
-        "missing = [n for n in new + ['havc_tpu_torch.models.zhang'] if n not in sys.modules]\n"
+        "new += ['havc_tpu_torch.models.zhang', 'havc_tpu_torch.exemplar.allrefs']\n"
+        "missing = [n for n in new if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len([n for n in sys.modules if n.startswith('havc_tpu_torch')]))\n"
     )
