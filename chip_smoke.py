@@ -91,15 +91,42 @@ JSON line; any failure exits non-zero:
     ``HAVC_main(EnableDeepEx=True)`` with method 5 and ref-merge 2 from a
     colored mp4 (OpenCV writes it), method 3 from a directory written by
     ``export_reference_frames``, and the all-refs encode mode 2.
-Each of 14-17 prints the wall time of a second call, fps, peak device
-memory, the stage times of a third call, the kernels' launches and the
-host syncs inside ``colormnet_propagate`` (the batched key encoder and
-the frame loop; any fails the phase).
+18. ``deepex_path``: ``HAVC_main(clip, EnableDeepEx=True, DeepExModel=1)``
+    on the exemplar clip: the classic engines on the three references,
+    Deep-Exemplar (VGG19, WarpNet, ColorVidNet: 55,024,269 parameters) at
+    216x384 with the WLS smoother, the fast stabilizer; then each of
+    Deep-Exemplar's convolutions on one batch through cuDNN and through
+    PyTorch's own kernels (``deepex_conv_paths``), the WLS smoother alone
+    on the path's 24x216x384 (its launches and device time,
+    torch.profiler) and the path's ``profile`` run.
+19. ``hybrid_path``: the same with ``DeepExModel=3``: the full ColorMNet
+    (window attention) blended with a vivid Deep-Exemplar.
+20. ``remaster_path``: ``HAVC_DeepRemaster(clip, clip_ref=<the exemplar
+    clip tinted per scene>)``: 20 references, 12 windows of 2 frames at
+    320x576 (NetworkC: 54,303,374 parameters); its ``profile`` run; then
+    ``HAVC_main(EnableDeepEx=True, DeepExModel=2)`` on the exemplar clip.
+21. ``frameinterp_deepex_path``: ``HAVC_main(clip, FrameInterp=2)``: the
+    classic engines on every 2nd frame, Deep-Exemplar between, the
+    stabilizer with one post-chain launch.
+22. ``restore_streaming/ex_model1`` and ``/ex_model2``: the restore
+    phase's 48-frame pair through Deep-Exemplar and DeepRemaster (the
+    look-ahead cursor over the reference video): fps, host syncs, chunk 16
+    against chunk 48 within 1 code.
+Each of 14-21 prints the wall time of a second call, fps, peak device
+memory, the stage times of a third call (18-22 name ``deepex_vgg``,
+``deepex_warp``, ``deepex_colorvid``, ``deepex_wls``,
+``remaster_encode_refs``, ``remaster_windows`` apart), the kernels'
+launches and the host syncs inside ``colormnet_propagate``,
+``deepex_propagate`` and ``remaster_propagate`` (any fails the phase).
 ``parity_cpu_gpu`` also covers the test-sized Placebo and VerySlow paths
 (6x136x240, tiny engines with DeOldify Deep "nano" and Zhang at width 8),
 the paths of phases 14-17 at 6x48x64 (the restore with ref-merge 2 and
-the encode mode 2 for 17), CLAHE on a 1080x1920 plane (1e-5), and tuned
-streaming (within 1 code).  Each kernel's ``launches_by_path`` gives its
+the encode mode 2 for 17), CLAHE on a 1080x1920 plane (1e-5), tuned
+streaming (within 1 code), and the paths of 18-21 at 6x48x64 with
+Deep-Exemplar and NetworkC at full width and their work sizes cut to
+40x64 and 32x48 (DeepEx runs a hard argmax and ``HAVC_main`` a hue
+threshold: at most 2 % of the values more than 1e-4 apart; DeepRemaster
+1e-4).  Each kernel's ``launches_by_path`` gives its
 launches on every path driven (counts zeroed just before each path and
 read just after; ``exemplar_sources`` sums its three calls).
 
@@ -846,27 +873,31 @@ def tinted(gray: torch.Tensor, per: int) -> torch.Tensor:
 
 
 class LoopSyncs:
-    """While active: the host syncs PyTorch reports inside every
-    ``exemplar.colormnet_propagate`` call (the batched key encoder and the
-    frame loop), summed over the calls."""
+    """While active: the host syncs PyTorch reports inside every call of
+    the exemplar propagations ``names`` (ColorMNet's: the batched key
+    encoder and the frame loop), summed over the calls and per name."""
 
-    def __init__(self, exemplar):
-        self.ex, self.calls, self.syncs, self.sites = exemplar, 0, 0, []
+    def __init__(self, exemplar, names=("colormnet_propagate",)):
+        self.ex, self.names, self.calls, self.syncs, self.sites = exemplar, names, 0, 0, []
+        self.by_name = {n: dict(calls=0, host_syncs=0) for n in names}
 
     def __enter__(self):
-        real = self.real = self.ex.colormnet_propagate
+        self.real = {n: getattr(self.ex, n) for n in self.names}
+        for name, real in self.real.items():
+            def spy(*a, _name=name, _real=real, **kw):
+                out, n, sites = count_syncs(lambda: _real(*a, **kw))
+                self.calls, self.syncs = self.calls + 1, self.syncs + n
+                self.by_name[_name]["calls"] += 1
+                self.by_name[_name]["host_syncs"] += n
+                self.sites += sites
+                return out
 
-        def spy(*a, **kw):
-            out, n, sites = count_syncs(lambda: real(*a, **kw))
-            self.calls, self.syncs = self.calls + 1, self.syncs + n
-            self.sites += sites
-            return out
-
-        self.ex.colormnet_propagate = spy
+            setattr(self.ex, name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.ex.colormnet_propagate = self.real
+        for name, real in self.real.items():
+            setattr(self.ex, name, real)
 
 
 def drive_exemplar_path(ht, pc, wa, card: str, name: str, run, frames_n: int,
@@ -1022,6 +1053,210 @@ def phase_exemplar_sources(ht, pc, wa, card: str, tmp: str) -> dict:
     return total
 
 
+# --- phases 18-22: Deep-Exemplar, the hybrid and DeepRemaster ---------------------------
+
+PROPAGATES = ("colormnet_propagate", "deepex_propagate", "remaster_propagate")
+ENGINE_STAGES = ("deepex_vgg", "deepex_warp", "deepex_colorvid", "deepex_wls", "deepex_resize",
+                 "remaster_encode_refs", "remaster_windows", "remaster_vivid")
+PARAMS_DEEPEX, PARAMS_NETWORKC = 55_024_269, 54_303_374  # the published widths
+
+
+def wls_profile(t: int, h: int, w: int) -> dict:
+    """``fgs_smooth_ab`` alone on a (t, h, w) LAB clip on the card: its
+    kernel launches (torch.profiler), device time and wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from havc_tpu_torch.ops.fgs import fgs_smooth_ab
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    lum = 100.0 * torch.rand((t, h, w, 1), generator=gen, device="cuda")
+    ab = 200.0 * torch.rand((t, h, w, 2), generator=gen, device="cuda") - 100.0
+    fgs_smooth_ab(lum, ab)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall_s = timed(lambda: fgs_smooth_ab(lum, ab))
+    dev = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    return dict(wls_shape=[t, h, w], wls_launches=sum(a.count for a in dev) if dev else
+                "not measured", wls_device_s=sum(a.self_device_time_total for a in dev) * 1e-6
+                if dev else "not measured", wls_wall_s=wall_s)
+
+
+def deepex_conv_paths(card: str) -> dict:
+    """Every Deep-Exemplar convolution of one batch (4 frames at the Medium
+    216x384, ``frame_colorization_batched``) timed with CUDA events, once
+    through cuDNN and once through PyTorch's own kernels (im2col and
+    SGEMM; direct for the dilated ones), f32 with TF32 off: the
+    measurement behind ``models.deepex._Conv2d``, which runs the undilated
+    ones without cuDNN."""
+    import torch.nn as nn
+
+    from havc_tpu_torch import engines
+    from havc_tpu_torch.models import deepex as dx
+
+    net = engines.registry.deepex("cuda")
+    h, w = exemplar_size()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lab = torch.rand((4, h, w, 3), generator=gen, device="cuda") * 100.0
+    lab = torch.cat([lab[..., :1], lab[..., 1:] - 50.0], dim=-1)
+    ib = lab[:1].clone()
+    convs = {n: m for n, m in net.named_modules() if isinstance(m, nn.Conv2d)}
+    events, hooks = {}, []
+    for name, m in convs.items():
+        def pre(mod, inp, n=name):
+            events[n] = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+            events[n][0].record()
+
+        hooks += [m.register_forward_pre_hook(pre),
+                  m.register_forward_hook(lambda mod, inp, out, n=name: events[n][1].record())]
+    times, real = {}, dx._Conv2d.forward
+    try:
+        for mode in ("cudnn", "native"):
+            dx._Conv2d.forward = nn.Conv2d.forward
+            with torch.inference_mode(), torch.backends.cudnn.flags(
+                    enabled=mode == "cudnn", benchmark=False, deterministic=False,
+                    allow_tf32=False):
+                for _ in range(2):  # the second call is timed
+                    b_feat = dx.encode_reference(net.vgg, net.warpnet, ib)
+                    dx.frame_colorization_batched(net.vgg, net.warpnet, net.colorvid, lab, ib,
+                                                  ib, b_feat, 1e-10)
+                    torch.cuda.synchronize()
+                    times[mode] = {n: a.elapsed_time(b) for n, (a, b) in events.items()}
+    finally:
+        dx._Conv2d.forward = real
+        for hk in hooks:
+            hk.remove()
+    port = {n: times["cudnn" if convs[n].dilation != (1, 1) else "native"][n] for n in convs}
+    top = sorted(convs, key=lambda n: -abs(times["cudnn"][n] - times["native"][n]))[:6]
+    row = dict(phase="deepex_conv_paths", card=card, batch=[4, h, w],
+               cudnn_ms=sum(times["cudnn"].values()), native_ms=sum(times["native"].values()),
+               port_ms=sum(port.values()),
+               top=[dict(conv=n, dilation=convs[n].dilation[0],
+                         cudnn_ms=times["cudnn"][n], native_ms=times["native"][n]) for n in top])
+    emit(row)
+    return row
+
+
+def drive_engine_path(ht, pc, wa, card: str, name: str, run, frames_n: int, want: dict,
+                      want_window_attn: bool, want_post_chain: int) -> dict:
+    """A Deep-Exemplar / DeepRemaster path at full width: a first call (the
+    engines made on the card, cuDNN selection), a measured second call
+    (wall time, fps, peak memory, the kernels' launches, the host syncs
+    inside each propagation), a stage-timed third.  ``want``: the
+    propagations that must run, with their call counts."""
+    from havc_tpu_torch import engines, exemplar
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    _, first_s = timed(run)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(pc, wa)
+    with LoopSyncs(exemplar, PROPAGATES) as loop:
+        out, wall_s = timed(run)
+    launches = read_launches(pc, wa)
+    peak = torch.cuda.max_memory_allocated()
+    enable_profiling(True)
+    reset_stages()
+    _, stage_timed_s = timed(run)
+    enable_profiling(False)
+    stages = {k: v[0] for k, v in stage_times().items()}
+    params = {k[0]: sum(p.numel() for p in m.parameters())
+              for k, m in engines.registry._cache.items() if k[0] in ("deepex", "remaster")}
+    f = out.frames
+    ok_shape = isinstance(f, torch.Tensor) and f.is_cuda and f.shape[0] == frames_n
+    finite = bool(torch.isfinite(f).all().item())
+    lo, hi = f.min().item(), f.max().item()
+    row = dict(phase=name, card=card, clip=list(f.shape), first_call_s=first_s, wall_s=wall_s,
+               fps=frames_n / wall_s, stage_timed_wall_s=stage_timed_s, stages_s=stages,
+               engine_stages_s={k: stages[k] for k in ENGINE_STAGES if k in stages},
+               max_memory_allocated=peak, params=params, launches=launches,
+               window_attn_calls=launches["window_attn"],
+               window_attn_launches=2 * launches["window_attn"],
+               post_chain_launches=launches["post_chain"], propagate=loop.by_name,
+               propagate_host_syncs=loop.syncs, sync_sites=loop.sites[:6], out_min=lo,
+               out_max=hi, mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item())
+    if "deepex_wls" in stages:
+        row["deepex_wls_share_of_wall"] = stages["deepex_wls"] / stage_timed_s
+    emit(row)
+    if not ok_shape:
+        fail(f"{name}: output {type(f)} {tuple(f.shape)} is not a CUDA clip of {frames_n} frames")
+    if not finite or lo < 0.0 or hi > 1.0:
+        fail(f"{name}: output not finite in [0,1] (finite={finite}, min={lo}, max={hi})")
+    for prop, calls in want.items():
+        if loop.by_name[prop]["calls"] != calls:
+            fail(f"{name}: {prop} ran {loop.by_name[prop]['calls']} times, expected {calls}")
+    if params.get("deepex", PARAMS_DEEPEX) != PARAMS_DEEPEX or \
+            params.get("remaster", PARAMS_NETWORKC) != PARAMS_NETWORKC:
+        fail(f"{name}: the engines are not at their published widths: {params}")
+    if loop.syncs:
+        fail(f"{name}: the propagation loops waited for the card {loop.syncs} times: "
+             f"{loop.sites[:6]}")
+    if (launches["window_attn"] > 0) != want_window_attn:
+        fail(f"{name}: window attention launched {launches['window_attn']} times")
+    if launches["post_chain"] != want_post_chain:
+        fail(f"{name}: the post-chain kernel ran {launches['post_chain']} times, expected "
+             f"{want_post_chain}")
+    if row["mean_abs_chroma"] <= 1e-4:
+        fail(f"{name}: no chroma in the output")
+    return dict(row, out=out)
+
+
+def phase_engine_paths(ht, pc, wa, card: str) -> dict:
+    """Deep-Exemplar, the hybrid, DeepRemaster and FrameInterp 2 on the
+    exemplar clip (24x1080p, cuts [0, 8, 16]) at full width; the first two
+    DeepEx-running paths and DeepRemaster also under ``phase_profile``.
+    Returns {path: the kernels' launches}."""
+    frames = torch.from_numpy(scene_clip_1080p()).cuda()
+    colored = tinted(frames, 8)
+    n = MAIN_SHAPE[0]
+
+    def main(**kw):
+        return lambda: ht.HAVC_main(ht.Clip(frames=frames), **kw)
+
+    by_path = {}
+    row = drive_engine_path(ht, pc, wa, card, "deepex_path",
+                            main(EnableDeepEx=True, DeepExModel=1), n,
+                            dict(deepex_propagate=1), False, 0)
+    deepex_conv_paths(card)
+    wls = wls_profile(n, *exemplar_size())
+    emit(dict(phase="deepex_path", card=card, **wls,
+              wls_share_of_stage_timed_wall=row["stages_s"].get("deepex_wls", 0.0)
+              / row["stage_timed_wall_s"]))
+    if row["out"].sc is None or np.nonzero(row["out"].sc.sc_prev)[0].tolist() != EX_CUTS:
+        fail("deepex_path: the output does not carry the scene cuts")
+    by_path["deepex_path"] = row["launches"]
+    phase_profile("deepex_path", main(EnableDeepEx=True, DeepExModel=1), row["wall_s"], card,
+                  "deepex")
+    del row
+    row = drive_engine_path(ht, pc, wa, card, "hybrid_path",
+                            main(EnableDeepEx=True, DeepExModel=3, engine_config="full"), n,
+                            dict(colormnet_propagate=1, deepex_propagate=1), True, 0)
+    by_path["hybrid_path"] = row["launches"]
+    remaster = lambda: ht.HAVC_DeepRemaster(ht.Clip(frames=frames),  # noqa: E731
+                                            clip_ref=ht.Clip(frames=colored))
+    row = drive_engine_path(ht, pc, wa, card, "remaster_path", remaster, n,
+                            dict(remaster_propagate=1), False, 0)
+    by_path["remaster_path"] = row["launches"]
+    phase_profile("remaster_path", remaster, row["wall_s"], card, "gemm")
+    row2 = drive_engine_path(ht, pc, wa, card, "remaster_path/main_model2",
+                             main(EnableDeepEx=True, DeepExModel=2), n,
+                             dict(remaster_propagate=1), False, 0)
+    for k in by_path["remaster_path"]:
+        by_path["remaster_path"][k] += row2["launches"][k]
+    row = drive_engine_path(ht, pc, wa, card, "frameinterp_deepex_path", main(FrameInterp=2), n,
+                            dict(deepex_propagate=1), False, 1)
+    by_path["frameinterp_deepex_path"] = row["launches"]
+    cuts = np.nonzero(row["out"].sc.sc_prev)[0].tolist() if row["out"].sc is not None else None
+    emit(dict(phase="frameinterp_deepex_path", reference_frames=cuts))
+    if not cuts or cuts[:2] != [0, 2]:
+        fail(f"frameinterp_deepex_path: reference frames {cuts}, expected every 2nd")
+    return by_path
+
+
+def exemplar_size():
+    from havc_tpu_torch import exemplar
+
+    return exemplar.smart_resize_shape(MAIN_SHAPE[2], MAIN_SHAPE[1], "medium")
+
+
 # --- phase 7: CPU <-> GPU parity at test size ---------------------------------------
 
 
@@ -1136,6 +1371,98 @@ def phase_parity(ht) -> None:
         exemplar._ENGINE_CACHE.update(saved_ex)
         engines.make_deoldify_fn, engines.make_ddcolor_fn = real_do, real_dd
     phase_clahe_parity()
+
+
+def engine_nets(device_list):
+    """Deep-Exemplar and NetworkC at their published widths with seeded
+    weights made once on the host (BatchNorm statistics moved off their
+    init values, the attention gates at 0.3), one copy per device."""
+    from havc_tpu_torch.models import deepex as tdx
+    from havc_tpu_torch.models import remaster as trm
+    from havc_tpu_torch.models.layers import init_flax_defaults
+
+    gen = torch.Generator().manual_seed(5)
+    models = {}
+    for key, m in ((("deepex", "full"), tdx.DeepEx()), (("remaster", "full"), trm.NetworkC())):
+        init_flax_defaults(m, gen)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith(("bn_mean", "bn_bias")):
+                    p.add_(0.05 * torch.randn(p.shape, generator=gen))
+                elif name.endswith(("bn_var", "bn_scale")):
+                    p.mul_(0.8 + 0.4 * torch.rand(p.shape, generator=gen))
+                elif name.endswith("gamma"):
+                    p.fill_(0.3)
+        m.eval().requires_grad_(False)
+        for dev in device_list:
+            models[key + (dev,)] = copy.deepcopy(m).to(dev)
+    return models
+
+
+ENGINE_WORK, REMASTER_WORK = (40, 64), (32, 48)  # the parity cases' cut work sizes
+
+
+def phase_engine_parity(ht) -> None:
+    """Deep-Exemplar, the hybrid, DeepRemaster and FrameInterp 2 at test
+    size (the two-scene 6x48x64 clip; tiny classic engines and ColorMNet,
+    Deep-Exemplar and NetworkC at full width with their work sizes cut to
+    40x64 and 32x48) with ``device="cpu"`` and on the card.  DeepEx runs
+    at temperature 1e-10, a hard argmax, and ``HAVC_main`` ends in the
+    colormap's hue thresholds: those paths are held by the share of moved
+    values (at most 2 % more than 1e-4 apart, none more than 0.02);
+    DeepRemaster within 1e-4."""
+    from havc_tpu_torch import engines, exemplar
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
+    saved = dict(engines.registry._cache)
+    saved_ex = dict(exemplar._ENGINE_CACHE)
+    real = (engines.make_deoldify_fn, engines.make_ddcolor_fn, exemplar.smart_resize_shape,
+            exemplar.remaster_work_shape)
+    engines.registry._cache.update(tiny_engines([cpu, gpu]))
+    engines.registry._cache.update(engine_nets([cpu, gpu]))
+    exemplar._ENGINE_CACHE.clear()
+    engines.make_deoldify_fn = lambda model=0, render_factor=24, **kw: real[0](model, 4, **kw)
+    engines.make_ddcolor_fn = lambda model=1, render_factor=24, **kw: real[1](model, 4, **kw)
+    exemplar.smart_resize_shape = lambda width, height, speed="medium": ENGINE_WORK
+    exemplar.remaster_work_shape = lambda width, height, frame_mindim=320: REMASTER_WORK
+    try:
+        two = two_scene_clip()
+        colored = tinted(torch.from_numpy(two), 3).numpy()
+
+        def main(**kw):
+            return lambda dev: ht.HAVC_main(ht.Clip(frames=two.copy()), batch_size=4,
+                                            device=dev, **kw)
+
+        cases = [("deepex_path", main(EnableDeepEx=True, DeepExModel=1), True),
+                 ("hybrid_path", main(EnableDeepEx=True, DeepExModel=3), True),
+                 ("remaster_path", lambda dev: ht.HAVC_DeepRemaster(
+                     ht.Clip(frames=two.copy()), clip_ref=ht.Clip(frames=colored.copy()),
+                     device=dev), False),
+                 ("frameinterp_deepex_path", main(FrameInterp=2), True)]
+        for name, run, binned in cases:
+            out_cpu = run("cpu").frames
+            out_gpu = run(None).frames
+            out_gpu = out_gpu.cpu().numpy() if isinstance(out_gpu, torch.Tensor) else out_gpu
+            out_cpu = out_cpu.numpy() if isinstance(out_cpu, torch.Tensor) else out_cpu
+            d = np.abs(out_cpu - out_gpu)
+            err, share = float(d.max()), float(np.mean(d > PARITY_TOL))
+            emit(dict(phase="parity_cpu_gpu", path=name, clip=list(out_gpu.shape),
+                      max_abs_err=err, share_over_tol=share, tol=PARITY_TOL,
+                      tol_rule="share <= 0.02, max <= 0.02" if binned else "max",
+                      mean_abs_chroma=float(np.abs(out_gpu - out_gpu.mean(-1, keepdims=True))
+                                            .mean())))
+            if binned and not (share <= 0.02 and err <= 0.02):
+                fail(f"parity_cpu_gpu {name}: {share:.4%} of values over {PARITY_TOL}, "
+                     f"max {err}")
+            if not binned and not err <= PARITY_TOL:
+                fail(f"parity_cpu_gpu {name}: max abs err {err} > {PARITY_TOL}")
+    finally:
+        engines.registry._cache.clear()
+        engines.registry._cache.update(saved)
+        exemplar._ENGINE_CACHE.clear()
+        exemplar._ENGINE_CACHE.update(saved_ex)
+        (engines.make_deoldify_fn, engines.make_ddcolor_fn, exemplar.smart_resize_shape,
+         exemplar.remaster_work_shape) = real
 
 
 def phase_clahe_parity() -> None:
@@ -1492,6 +1819,67 @@ def phase_restore_streaming(pc, wa, card: str, tmp: str):
     return run, wall_s, by_kernel
 
 
+def phase_restore_streaming_engines(pc, wa, card: str, tmp: str) -> dict:
+    """``HAVC_restore_video_streaming`` with Deep-Exemplar (``ex_model=1``,
+    at the Medium work size) and DeepRemaster (``ex_model=2``, at 320x576,
+    a reference every 10 frames, the look-ahead cursor over the reference
+    video) on the restore phase's 48-frame 1080p pair: fps of a second
+    call, its host syncs, peak memory, the host syncs inside each
+    propagation, chunk 16 against chunk 48 within 1 code, stage times."""
+    from havc_tpu_torch import exemplar, streaming
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    src, ref = f"{tmp}/restore_gray.y4m", f"{tmp}/restore_ref.y4m"
+    h, w = MAIN_SHAPE[1:]
+    total = dict(post_chain=0, window_attn=0)
+    for ex_model, prop in ((1, "deepex_propagate"), (2, "remaster_propagate")):
+        name = f"restore_streaming/ex_model{ex_model}"
+
+        def run(chunk_size=16, ex_model=ex_model):
+            return streaming.HAVC_restore_video_streaming(
+                src, ref, f"{tmp}/unused.mp4", ex_model=ex_model, chunk_size=chunk_size,
+                sink="null")
+
+        with Recorder(streaming) as rec16:
+            first_n, first_s = timed(run)
+        zero_launches(pc, wa)
+        torch.cuda.reset_peak_memory_stats()
+        (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
+        launches = read_launches(pc, wa)
+        peak = torch.cuda.max_memory_allocated()
+        with Recorder(streaming) as rec48, LoopSyncs(exemplar, (prop,)) as loop:
+            n48, wall48_s = timed(lambda: run(chunk_size=RESTORE_T))
+        enable_profiling(True)
+        reset_stages()
+        _, stage_timed_s = timed(run)
+        enable_profiling(False)
+        stages = {k: v[0] for k, v in stage_times().items()}
+        uv16, uv48 = rec16.joined("packed"), rec48.joined("packed")
+        diff = np.abs(uv16 - uv48)
+        for k in total:
+            total[k] += launches[k]
+        emit(dict(phase=name, card=card, clip=[RESTORE_T, h, w], first_call_s=first_s,
+                  frames=n, wall_s=wall_s, fps=n / wall_s, transfer=streaming.last_transfer(),
+                  host_syncs=sync_n, sync_sites=sync_sites, max_memory_allocated=peak,
+                  launches=launches, chunk48_s=wall48_s, propagate=loop.by_name,
+                  chunk16_vs_48_max_code_diff=int(diff.max()),
+                  chunk16_vs_48_unequal_share=float(np.mean(diff > 0)),
+                  stage_timed_wall_s=stage_timed_s, stages_s=stages,
+                  out_uv_shape=list(uv16.shape), **chroma_stats(uv16)))
+        if (first_n, n, n48) != (RESTORE_T,) * 3:
+            fail(f"{name}: frames written {first_n}, {n}, {n48} != {RESTORE_T}")
+        if tuple(uv16.shape) != (RESTORE_T, h // 2, w) or diff.max() > 1:
+            fail(f"{name}: retired {uv16.shape}; chunk 16 and 48 differ by {diff.max()} codes")
+        if loop.by_name[prop]["calls"] < 1 or loop.syncs:
+            fail(f"{name}: {prop} ran {loop.by_name[prop]['calls']} times with "
+                 f"{loop.syncs} host syncs inside")
+        # seeded NetworkC's sigmoid sits near 0.5: its ab stays within a few
+        # units of neutral, so DeepRemaster's least chroma is lower
+        if chroma_stats(uv16)["mean_abs_uv_minus_128"] <= (1.0 if ex_model == 1 else 0.25):
+            fail(f"{name}: no chroma came through from the reference")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -1548,7 +1936,9 @@ def main() -> None:
     phase_profile("colortemp_path", run_ct, ct_wall_s, smi, "window_attn")
     del run_ct
     by_path["frameinterp_path"], _, _ = phase_frameinterp_path(ht, pc, wa, smi)
+    by_path.update(phase_engine_paths(ht, pc, wa, smi))
     phase_parity(ht)
+    phase_engine_parity(ht)
     has_cv2 = importlib.util.find_spec("cv2") is not None
     with tempfile.TemporaryDirectory() as tmp:
         if not has_cv2:
@@ -1565,6 +1955,7 @@ def main() -> None:
             pc, wa, smi, tmp)
         phase_profile("restore_streaming", run_restore, rs_wall_s, smi, "window_attn")
         del run_restore
+        by_path["restore_streaming_engines"] = phase_restore_streaming_engines(pc, wa, smi, tmp)
 
     # `launches`: each kernel's slice's own path (the post chain: HAVC_main
     # with its defaults; window attention: the exemplar path), in calls

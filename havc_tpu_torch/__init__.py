@@ -4,10 +4,12 @@
 Placebo and VerySlow included, every ColorModel with DeOldify Video,
 Stable and Artistic, DDColor and Zhang, every CombMethod, ColorFix,
 ColorTune, ColorMap and BlackWhiteTune), the filters (``HAVC_bw_tune``,
-``HAVC_TimeCube``, ``HAVC_retinex``, ``HAVC_merge``, ...), the ColorMNet
-exemplar path, ``HAVC_main(clip, EnableDeepEx=True)``, and the
-bounded-memory streaming paths (``HAVC_main_streaming`` with BWTune and
-LUT, ``streaming.HAVC_restore_video_streaming`` with ColorMNet) run on an
+``HAVC_TimeCube``, ``HAVC_retinex``, ``HAVC_merge``, ...), the exemplar
+paths, ``HAVC_main(clip, EnableDeepEx=True)`` with ColorMNet,
+Deep-Exemplar, DeepRemaster (also ``HAVC_DeepRemaster``) or the hybrid,
+and the bounded-memory streaming paths (``HAVC_main_streaming`` with
+BWTune and LUT, ``streaming.HAVC_restore_video_streaming`` with every
+engine) run on an
 NVIDIA GPU: plain tensor code in PyTorch, and the TPU kernels rewritten in CUDA
 C++ for Hopper (``csrc/post_chain.cu``, the fused post chain;
 ``csrc/window_attn.cu``, ColorMNet's local window attention), built with

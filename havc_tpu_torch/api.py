@@ -12,20 +12,22 @@ Port of ``havc_tpu.api``:
   chain, temporal chroma stabilizer, deflicker, chroma restore) and the
   DeepEx branch for methods 0/1/2 (``HAVC_colorizer`` with scene detection
   makes the reference frames, ``exemplar.HAVC_deepex`` propagates them
-  with ColorMNet, then the fast stabilizer settings);
+  with ColorMNet, Deep-Exemplar, DeepRemaster or the hybrid, then the
+  fast stabilizer settings) and FrameInterp (every n-th frame colorized,
+  Deep-Exemplar (1-4) or ColorMNet (5-10) in between);
 * the filters: ``HAVC_merge``, ``HAVC_bw_tune``, ``HAVC_auto_levels``,
   ``HAVC_retinex``, ``HAVC_rgb_denoise``, ``HAVC_adjust_rgb``,
   ``HAVC_tweak``, ``HAVC_TimeCube``, ``HAVC_recover_clip_color``,
   ``HAVC_ColorAdjust`` (with ReColor), ``HAVC_main_restore``, the tiles
-  (``HAVC_clip_slice``, ``HAVC_clip_reconstruct``), ``HAVC_read_video``
-  and the parameter setters.
+  (``HAVC_clip_slice``, ``HAVC_clip_reconstruct``), ``HAVC_read_video``,
+  ``HAVC_DeepRemaster`` and the parameter setters.
 
 Parameter names, packs and defaults are the JAX package's.
 
 Every entry point takes ``device``: ``None`` means CUDA and raises when
 there is none; ``device="cpu"`` runs on the CPU.  A clip of numpy frames
 comes back with numpy frames; a clip of tensors comes back with tensors on
-the device it ran on.  Branches that need a module not ported yet raise
+the device it ran on.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -73,6 +75,7 @@ __all__ = [
     "HAVC_ColorAdjust",
     "HAVC_colorizer_fast",
     "HAVC_restore_video",
+    "HAVC_DeepRemaster",
     "HAVC_read_video",
     "HAVC_set_tweak_params",
     "HAVC_set_merge_params",
@@ -795,28 +798,25 @@ def _check_deepex_input(DeepExOnlyRefFrames, ScFrameDir, DeepExMethod,
         raise ValueError("HAVC_main: RefMerge cannot be used with DeepExMethod in (2, 6)")
 
 
-def _check_frame_interp(frame_interp: int) -> None:
-    """FrameInterp 1-4 interpolates with Deep-Exemplar (item 16): raise
-    before any engine runs."""
-    if 0 < frame_interp < 5:
-        raise _not_ported(f"FrameInterp={frame_interp} (Deep-Exemplar)",
-                          "item 16, DeepEx and DeepRemaster")
-
-
 def _frame_interpolation(clip: Clip, clip_ref: Clip, frame_interp: int = 5,
                          chroma_adjust: str = "none", process_id: int = 1, batch_size: int = 8,
                          engine_config: Optional[str] = None, device=None) -> Clip:
-    """ColorMNet between the references of ``clip_ref`` (its own flags),
-    ``frame_interp`` 5-10: ``process_id`` 1 is ``HAVC_deepex``, 2
-    ``HAVC_cmnet2`` with the dark and smooth prefilters.  ``ref_freq`` is
-    passed as the JAX package passes it, but only ref-merge reads it, and
-    ref-merge is off here."""
+    """Colors between the references of ``clip_ref`` (its own flags):
+    ``frame_interp`` 1-4 by Deep-Exemplar (``HAVC_deepex`` with
+    ``ex_model=1``), 5-10 by ColorMNet, where ``process_id`` 1 is
+    ``HAVC_deepex`` and 2 ``HAVC_cmnet2`` with the dark and smooth
+    prefilters.  ``ref_freq`` is passed as the JAX package passes it, but
+    only ref-merge reads it, and ref-merge is off here."""
     from .exemplar import HAVC_cmnet2, HAVC_deepex
 
     common = dict(clip=clip, clip_ref=clip_ref, render_speed="medium", render_vivid=True,
                   ref_merge=0, ref_thresh=0.10, encode_mode=0, max_memory_frames=0,
-                  ref_freq=frame_interp * 2, colormap=chroma_adjust, batch_size=batch_size,
-                  engine_config=engine_config, device=device)
+                  colormap=chroma_adjust, batch_size=batch_size, engine_config=engine_config,
+                  device=device)
+    if frame_interp < 5:
+        return HAVC_deepex(method=0, only_ref_frames=False, dark=False, ex_model=1,
+                           ref_norm=False, smooth=False, ref_freq=frame_interp, **common)
+    common["ref_freq"] = frame_interp * 2
     if process_id == 1:
         return HAVC_deepex(method=0, only_ref_frames=False, dark=False, ex_model=0,
                            ref_norm=False, smooth=False, **common)
@@ -878,7 +878,7 @@ def HAVC_main_colorizer(
 ) -> Clip:
     """Main HAVC coloring function.  Classic path: HAVC_colorizer (on 2x2
     or 1x2 overlapping tiles for Placebo and VerySlow, at the tiles'
-    render factor) or, with FrameInterp 5-10, HAVC_colorizer_fast; the
+    render factor) or, with FrameInterp, HAVC_colorizer_fast; the
     ColorTemp re-color; then the speed-tier stabilizer settings (colormap
     only for the fast presets; dark + smooth + colormap + stab for the
     others).  DeepEx methods 0/1/2 (and the internal frame-interpolation
@@ -886,8 +886,10 @@ def HAVC_main_colorizer(
     frames, HAVC_deepex propagates them, then the fast stabilizer
     settings; methods 5/6 re-color from the video ``ScFrameDir`` (cut to
     ``RefRange``) through HAVC_restore_video; methods 3/4 read the
-    reference directory ``ScFrameDir``.  DeepExModel 1/2/3 and FrameInterp
-    1-4 raise (item 16)."""
+    reference directory ``ScFrameDir`` (with DeepExModel 2, HAVC_DeepRemaster
+    reads it directly).  DeepExModel picks the engine: 0 ColorMNet, 1
+    Deep-Exemplar, 2 DeepRemaster, 3 the hybrid; FrameInterp 1-4 fills in
+    between the sparse references with Deep-Exemplar."""
     HAVC_set_debug_level(debug_level)
     dev = resolve_device(device)
 
@@ -948,10 +950,6 @@ def HAVC_main_colorizer(
 
         _check_deepex_input(DeepExOnlyRefFrames, ScFrameDir, DeepExMethod,
                             ScThreshold, ScMinFreq, DeepExRefMerge)
-        if DeepExModel != 0 and DeepExMethod != DEF_HAVC_METHOD_PLACEBO:
-            # before the references are colorized for nothing
-            raise _not_ported(f"DeepExModel={DeepExModel} (DeepEx / DeepRemaster / hybrid)",
-                              "item 16, DeepEx and DeepRemaster")
         ref_freq = ScMinFreq if ScMinFreq > 1 else 0
         if DeepExRefMerge > 0:
             ScMinFreq = 1
@@ -1005,11 +1003,12 @@ def HAVC_main_colorizer(
         return clip_colored.to_host() if to_host else clip_colored
 
     if EnableDeepEx and DeepExMethod in (3, 4):  # a reference directory
-        from .exemplar import HAVC_deepex
+        from .exemplar import HAVC_DeepRemaster, HAVC_deepex
 
-        if DeepExModel == 2:
-            raise _not_ported("DeepExModel=2 with a reference directory (HAVC_DeepRemaster)",
-                              "item 16, DeepEx and DeepRemaster")
+        if DeepExModel == 2:  # DeepRemaster reads the folder directly
+            out = HAVC_DeepRemaster(clip, render_vivid=DeepExVivid, ref_dir=ScFrameDir,
+                                    ref_buffer_size=DeepExMaxMemFrames or 20, mode=0, device=dev)
+            return out.to_host() if to_host else out
         out = HAVC_deepex(
             clip=clip, clip_ref=None, method=DeepExMethod, render_speed=DeepExPreset,
             render_vivid=DeepExVivid, sc_framedir=ScFrameDir,
@@ -1210,14 +1209,14 @@ def HAVC_veryslow_preset(
     DeepEx method) and ColorMNet fills in between; then the BlackWhiteTune
     adjust with a hue 10 / sat 1.05 / cont 0.90 tweak, blended 40/60 with
     the merge."""
-    _check_frame_interp(FrameInterp)
     dev = resolve_device(device)
     do_name, dd_name = presets.split_color_model(ColorModel)
     clip, to_host = _on(clip, dev)
     color_temp = presets.get_temp_color(ColorTemp)
     interp = FrameInterp > 0
+    # the references' spacing: every n-th frame for DeepEx, every 2n-th for ColorMNet
     extra = (dict(EnableDeepEx=True, DeepExMethod=DEF_HAVC_METHOD_PLACEBO, ScThreshold=0.1,
-                  ScMinFreq=FrameInterp * 2)
+                  ScMinFreq=FrameInterp if FrameInterp < 5 else FrameInterp * 2)
              if interp else dict(EnableDeepEx=EnableDeepEx, DeepExMethod=DeepExMethod,
                                  ScThreshold=ScThreshold, ScMinFreq=ScMinFreq))
 
@@ -1323,8 +1322,8 @@ def HAVC_placebo_preset(
                 out = _colortemp_recolor(clip, out, color_temp, "300:360|0.8,0.1",
                                          engine_config, batch_size, device=dev)
         return out.to_host() if to_host else out
-    _check_frame_interp(FrameInterp)
-    ref_freq = FrameInterp * 2
+    # the references' spacing: every n-th frame for DeepEx, every 2n-th for ColorMNet
+    ref_freq = FrameInterp if FrameInterp < 5 else FrameInterp * 2
     clip_colored = HAVC_main_presets(clip, "placebo", 0, EnableDeepEx=True,
                                      DeepExMethod=DEF_HAVC_METHOD_PLACEBO, ScThreshold=0.1,
                                      ScMinFreq=ref_freq, **kw)
@@ -1567,15 +1566,14 @@ def HAVC_colorizer_fast(
     """Fast colorizer: the classic engines colorize only the scene changes
     and every ``frame_interp``-th frame (``sc_threshold`` 0.1,
     ``sc_min_freq=frame_interp``), and ColorMNet propagates their colors
-    in between (``frame_interp`` 5-10; 1-4 would run Deep-Exemplar and
-    raise, item 16).  ``sc_min_freq`` is a legacy alias of
-    ``frame_interp``; ``engine_config`` sizes the ColorMNet engine."""
+    in between (``frame_interp`` 5-10) or Deep-Exemplar (1-4).
+    ``sc_min_freq`` is a legacy alias of ``frame_interp``;
+    ``engine_config`` sizes the ColorMNet engine."""
     if sc_min_freq is not None:
         frame_interp = sc_min_freq
     HAVC_set_debug_level(debug_level)
     if frame_interp not in range(1, 11):
         raise ValueError("HAVC_colorizer_fast: frame_interp must be in range [1-10]")
-    _check_frame_interp(frame_interp)
     dev = resolve_device(device)
     clip, to_host = _on(clip, dev)
     ref = HAVC_colorizer(
@@ -1597,6 +1595,13 @@ def HAVC_restore_video(*args, **kwargs):
     from .exemplar import HAVC_restore_video as _restore
 
     return _restore(*args, **kwargs)
+
+
+def HAVC_DeepRemaster(*args, **kwargs):
+    """Re-export of ``exemplar.HAVC_DeepRemaster``."""
+    from .exemplar import HAVC_DeepRemaster as _remaster
+
+    return _remaster(*args, **kwargs)
 
 
 def HAVC_read_video(

@@ -3,7 +3,8 @@
 Port of ``havc_tpu.engines``.  The registry caches one ``nn.Module`` per
 (family, name, device).  With a weights directory set
 (``set_weights_dir``) it loads the same converted ``<family>_<name>.npz``
-files (``colormnet.npz`` for the full ColorMNet) the JAX registry reads,
+files the JAX registry reads (``colormnet.npz`` for the full ColorMNet,
+``deepex.npz`` and ``remaster.npz`` for the other exemplar engines),
 through the weight bridge; otherwise each engine gets seeded random
 weights made on its device from a ``torch.Generator`` (flax's default
 initialisers), and ``random_init_used`` is set.
@@ -114,6 +115,21 @@ class EngineRegistry:
 
         return self._get("colormnet", config, device, lambda _: cm.ColorMNet(config),
                          "colormnet.npz" if config == "full" else None)
+
+    def deepex(self, device=None) -> nn.Module:
+        """Deep-Exemplar's three networks (``vgg``, ``warpnet``,
+        ``colorvid``): ``deepex.npz`` when one is configured, else seeded
+        weights."""
+        from .models import deepex as dx
+
+        return self._get("deepex", "full", device, lambda _: dx.DeepEx(), "deepex.npz")
+
+    def remaster(self, device=None) -> nn.Module:
+        """DeepRemaster's NetworkC: ``remaster.npz`` when one is configured,
+        else seeded weights."""
+        from .models import remaster as rm
+
+        return self._get("remaster", "full", device, lambda _: rm.NetworkC(), "remaster.npz")
 
     def checkpoint(self, file: Optional[str]) -> Optional[str]:
         """The path of the converted checkpoint ``<weights_dir>/<file>``, or

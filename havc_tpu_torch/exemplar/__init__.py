@@ -1,9 +1,11 @@
-"""Exemplar-based colorization: the ColorMNet engine and its API.
+"""Exemplar-based colorization: the ColorMNet, Deep-Exemplar and
+DeepRemaster engines and their API.
 
-Port of the ColorMNet part of ``havc_tpu.exemplar``: reference frames
-(HAVC-colorized scene changes, a directory of images or an external
-colored video) propagate their color through the clip by ColorMNet's
-memory network.  ``colormnet_propagate`` runs the key encoder batched over
+Port of ``havc_tpu.exemplar``: reference frames (HAVC-colorized scene
+changes, a directory of images or an external colored video) propagate
+their color through the clip by one of three engines.
+
+ColorMNet (``ex_model`` 0) propagates by its memory network.  ``colormnet_propagate`` runs the key encoder batched over
 the clip, then one step per frame: memory readout, local window attention
 (the CUDA kernel on the card), decoder, gated value encoder and memory
 insert.  Everything the JAX scan decides with ``lax.cond`` from the
@@ -12,14 +14,26 @@ cadence, exemplar inserts, deep updates, the vivid reset) is decided here
 on the host before any device work is queued, so the loop never waits for
 the card.
 
-Entry points: ``HAVC_deepex`` (methods 0-6), ``HAVC_cmnet2`` and
-``HAVC_restore_video``, with ref-merge (``ref_merge`` 1-5), reference
-directories (``sc_framedir``, the ``only_ref_frames`` export) and the
-all-refs encode modes 2/3 (``exemplar/allrefs.py``).
+Deep-Exemplar (``ex_model`` 1, ``deepex_propagate``) pins each scene's
+reference and last prediction, so every frame of a scene is independent:
+the reference is encoded once per scene and the frames run in batches
+(VGG19, WarpNet's correlation, ColorVidNet), then the WLS smoother
+(``ops/fgs.py``) over the whole clip.  DeepRemaster (``ex_model`` 2,
+``remaster_propagate``) colorizes windows of ``length`` frames with
+NetworkC against a sliding window of ``ref_buffer_size`` references, at
+its own /16 geometry (``remaster_work_shape``).  The hybrid (``ex_model``
+3) blends ColorMNet with a vivid DeepEx.  Scene bounds, batches, window
+starts and the reference cache are decided on the host from numpy.
 
-Left out (each raises ``NotImplementedError`` naming its ROADMAP item):
-DeepEx, DeepRemaster and the hybrid (``ex_model`` 1/2/3, item 16) and
-``scene_parallel`` (the scene-batched scan, item 18).
+Entry points: ``HAVC_deepex`` (methods 0-6), ``HAVC_cmnet2``,
+``HAVC_restore_video`` and ``HAVC_DeepRemaster``, with ref-merge
+(``ref_merge`` 1-5), reference directories (``sc_framedir``, the
+``only_ref_frames`` export) and the all-refs encode modes 2/3
+(``exemplar/allrefs.py``).
+
+Left out (each raises ``NotImplementedError`` naming ROADMAP item 18):
+``scene_parallel`` (the scene-batched scan) and ``mesh=`` (sharding over
+several devices).
 """
 from __future__ import annotations
 
@@ -35,8 +49,11 @@ from ..engines import registry
 from ..filters import chroma_bright_tweak, colormap_filter, dark_tweak, recover_clip_luma
 from ..io.video import export_reference_frames, read_reference_dir
 from ..models import colormnet as cm
+from ..models import deepex as dx
 from ..models import memory as mem
-from ..ops.colorspace import lab_to_rgb, rgb_to_lab
+from ..ops.chroma import chroma_tweak
+from ..ops.colorspace import lab_to_rgb, luma, rgb_to_lab
+from ..ops.fgs import fgs_smooth_ab
 from ..ops.resize import resize, smart_resize_pad, smart_resize_restore
 from ..presets import get_colormap
 from ..scene.detect import scene_detect
@@ -47,25 +64,30 @@ __all__ = [
     "HAVC_deepex",
     "HAVC_cmnet2",
     "HAVC_restore_video",
+    "HAVC_DeepRemaster",
     "ColorMNetEngine",
+    "DeepExEngine",
+    "RemasterEngine",
     "colormnet_propagate",
+    "deepex_propagate",
+    "remaster_propagate",
     "resolve_engine_config",
     "smart_resize_shape",
+    "remaster_work_shape",
     "pad112_geometry",
 ]
-
-# render speed -> SmartResize work size (H, W) (models/deepex.get_deepex_size)
-DEEPEX_SIZES = {
-    "fast": (144, 256),
-    "medium": (216, 384),
-    "slow": (288, 512),
-    "slower": (360, 640),
-}
 
 ENC_BATCH = 8  # frames per batched key-encoder call
 
 # DeepExRefMerge / ref_merge level -> weight of the reference in the blend
 REFMERGE_WEIGHT = [0.0, 0.3, 0.4, 0.5, 0.6, 0.7]
+
+# vivid tweaks: DeepRemaster's pre-tweak on the references (hue +3, sat
+# x1.30) and post-tweak on its output (hue +5, sat x1.15)
+DEF_VIVID_HUE_LOW = 3.0
+DEF_VIVID_SAT_HIGH = 1.30
+DEF_VIVID_HUE_HIGH = 5.0
+DEF_VIVID_SAT_LOW = 1.15
 
 
 def resolve_engine_config(requested: Optional[str] = None) -> str:
@@ -84,8 +106,21 @@ def resolve_engine_config(requested: Optional[str] = None) -> str:
 
 
 def smart_resize_shape(width: int, height: int, speed: str = "medium"):
-    """SmartResize working size of a render speed: (H, W)."""
-    return DEEPEX_SIZES[speed.lower()]
+    """SmartResize working size of a render speed: (H, W)
+    (``models.deepex.get_deepex_size``)."""
+    return dx.get_deepex_size(speed)
+
+
+def remaster_work_shape(width: int, height: int, frame_mindim: int = 320):
+    """DeepRemaster's working geometry (H, W): scaled so that the smaller
+    side is ``frame_mindim``, then each side rounded to a multiple of 16
+    (NetworkC's decoder joins a 2x-upsampled 1/16 feature with the 1/8
+    one, so both sides must divide by 16; the DeepEx sizes do not)."""
+    minwh = min(width, height)
+    scale = 1.0 if minwh == frame_mindim else frame_mindim / minwh
+    fw = max(round(width * scale / 16.0), 1) * 16
+    fh = max(round(height * scale / 16.0), 1) * 16
+    return fh, fw
 
 
 def pad112_geometry(wh: int, ww: int):
@@ -135,6 +170,10 @@ def _lab_l3(rgb: torch.Tensor) -> torch.Tensor:
     """RGB [0,1] (..., 3) -> normalised L, (L - 50) / 50, in 3 channels."""
     l = rgb_to_lab(rgb)[..., 0:1]
     return ((l - 50.0) / 50.0).expand(*l.shape[:-1], 3)
+
+
+def _as_tensor(x, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).to(dev)
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -286,9 +325,8 @@ def colormnet_propagate(
     ``reset[n]``, and ``is_ref``, ``frame_propagate`` and ``vivid`` are not
     read."""
     dev = engine.device
-    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev)  # noqa: E731
-    frames = as_t(frames)
-    ref_frames = frames if ref_frames is None else as_t(ref_frames)
+    frames = _as_tensor(frames, dev)
+    ref_frames = frames if ref_frames is None else _as_tensor(ref_frames, dev)
     if feed_schedule is not None:
         src = np.asarray(feed_schedule, np.int64)  # the reference frame of each step
         if len(src) != len(frames):
@@ -311,7 +349,8 @@ def colormnet_propagate(
     step = _build_cm_step(engine, vivid, frame_propagate)
 
     with torch.inference_mode():
-        xs, ref_pre, (lh, lw, fh, fw) = _cm_prepare(engine, frames, as_t(ref_ab), ref_frames,
+        xs, ref_pre, (lh, lw, fh, fw) = _cm_prepare(engine, frames, _as_tensor(ref_ab, dev),
+                                                    ref_frames,
                                                     ref_idx)
         carry = resume_state if resume_state is not None else _cm_init_carry(engine)
         outs = []
@@ -326,6 +365,185 @@ def colormnet_propagate(
     if return_state:
         return ab, carry
     return ab
+
+
+# ---------------------------------------------------------------------------
+# Deep-Exemplar
+# ---------------------------------------------------------------------------
+
+
+class DeepExEngine:
+    """VGG19, WarpNet and ColorVidNet on ``device`` (the registry's
+    ``deepex.npz`` when one is configured, else seeded weights), at the
+    SmartResize size of ``speed``."""
+
+    def __init__(self, speed: str = "medium", device=None):
+        self.h, self.w = smart_resize_shape(0, 0, speed)
+        self.device = resolve_device(device)
+        net = registry.deepex(self.device)
+        self.vgg, self.warp, self.color = net.vgg, net.warpnet, net.colorvid
+
+
+@torch.inference_mode()
+def deepex_propagate(
+    engine: DeepExEngine,
+    frames,  # (T, H, W, 3) RGB [0,1] at the engine's size
+    refs,  # (T, H, W, 3) reference RGB (read on the reference frames)
+    is_ref,  # (T,) bool
+    wls_filter: bool = True,
+    frame_propagate: bool = True,
+    vivid: bool = False,
+    batch_size: int = 4,
+    mesh=None,
+    temperature: float = 1e-10,
+) -> torch.Tensor:
+    """Reference-conditioned colorization: (T, H, W, 3) RGB in [0, 1], a
+    tensor on the engine's device.
+
+    A scene runs from each reference frame to the next (frame 0 always
+    starts one).  The last prediction is pinned to the scene's
+    reference LAB (``frame_propagate``) or to neutral (50, 0, 0), so the
+    reference is encoded once per scene and the scene's frames run in
+    batches of ``batch_size``, the last padded by repeating its final
+    frame.  ``temperature`` 1e-10 (the entry points') makes the warp a hard
+    argmax over the correspondences; 0.01 is the smooth softmax.
+    ``vivid`` scales ab by 1.25 before the WLS smoother (``wls_filter``).
+    ``mesh`` (sharding the batch over devices) is ROADMAP item 18."""
+    if mesh is not None:
+        raise _not_ported("deepex_propagate(mesh=...)", "item 18, parallel/mesh.py")
+    dev = engine.device
+    frames, refs = _as_tensor(frames, dev), _as_tensor(refs, dev)
+    T = len(frames)
+    starts = list(np.nonzero(np.asarray(is_ref, bool))[0])
+    if not starts or starts[0] != 0:
+        starts = [0] + starts
+    bounds = starts + [T]
+    lab_frames = rgb_to_lab(frames)
+    ab_chunks = []
+    for s0, s1 in zip(bounds[:-1], bounds[1:]):
+        if s1 <= s0:
+            continue
+        ib_lab = rgb_to_lab(refs[s0:s0 + 1])
+        b_feat = dx.encode_reference(engine.vgg, engine.warp, ib_lab)
+        if frame_propagate:
+            last_lab = ib_lab
+        else:
+            last_lab = torch.cat([torch.full_like(ib_lab[..., :1], 50.0),
+                                  torch.zeros_like(ib_lab[..., 1:])], dim=-1)
+        for c0 in range(s0, s1, batch_size):
+            n = min(c0 + batch_size, s1) - c0
+            chunk = lab_frames[c0:c0 + n]
+            if n < batch_size:
+                chunk = torch.cat([chunk, chunk[-1:].expand(batch_size - n, -1, -1, -1)])
+            ab = dx.frame_colorization_batched(engine.vgg, engine.warp, engine.color, chunk,
+                                               ib_lab, last_lab, b_feat, temperature)
+            ab_chunks.append(ab[:n])
+    ab_seq = torch.cat(ab_chunks)
+    if vivid:  # +25 % saturation
+        ab_seq = ab_seq * 1.25
+    l_seq = lab_frames[..., 0:1]
+    if wls_filter:
+        with stage_timer("deepex_wls"):
+            ab_seq = fgs_smooth_ab(l_seq, ab_seq)
+    return torch.clamp(lab_to_rgb(torch.cat([l_seq, ab_seq], dim=-1)), 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# DeepRemaster
+# ---------------------------------------------------------------------------
+
+REMASTER_GROUP = 4  # frame windows per NetworkC forward
+
+
+class RemasterEngine:
+    """NetworkC on ``device`` in float32 (the registry's ``remaster.npz``
+    when one is configured, else seeded weights).  ``frame_size`` is the
+    work size's smaller side (``remaster_work_shape``)."""
+
+    def __init__(self, frame_size: int = 320, device=None):
+        self.size = frame_size
+        self.device = resolve_device(device)
+        self.model = registry.remaster(self.device)
+
+
+def _remaster_window_starts(T: int, length: int, S: int, R: int, ref_positions,
+                            future_frame_weight: float, frame0: int):
+    """The reference window's first index for each forward position: the
+    window of ``S`` of the ``R`` references advances one slot whenever the
+    frame passes its past/future split (``half_idx``)."""
+    half_idx = max(round(S * (1.0 - future_frame_weight)) - 1, 0)
+    win_starts, ws = [], 0
+    for st in range(0, T, length):
+        if ref_positions is not None:
+            while ws + S < R and frame0 + st > ref_positions[ws + half_idx]:
+                ws += 1
+        win_starts.append(ws)
+    return win_starts
+
+
+@torch.inference_mode()
+def remaster_propagate(
+    engine: RemasterEngine,
+    frames,  # (T, H, W, 3) [0,1] at the work size
+    ref_frames,  # (R, H, W, 3) every reference frame, in time order
+    length: int = 2,
+    ref_positions=None,  # (R,) frame index of each reference
+    ref_buffer_size: int = 20,
+    future_frame_weight: float = 0.5,
+    mesh=None,
+    frame0: int = 0,  # global index of frames[0] (streaming chunks)
+) -> torch.Tensor:
+    """Windowed NetworkC colorization: (T, H, W, 3) RGB in [0, 1], a tensor
+    on the engine's device.
+
+    ``length`` frames a forward against a sliding window of
+    ``ref_buffer_size`` consecutive references, which advances one slot
+    whenever the window's first frame passes the reference at its
+    past/future split; without ``ref_positions`` the window stays on the
+    first references.  ``frame0`` offsets the frames so that a streaming
+    chunk replays the whole clip's schedule (``ref_positions`` are global;
+    ``ref_frames`` may be a slice).  Up to ``REMASTER_GROUP`` windows that
+    share a reference window run in one forward, the encoded references
+    cached per window start.  Input: rec601 luma; output: LAB of (luma *
+    100, clip(ab01 * 255 - 128, -100, 100)).  ``mesh`` is ROADMAP item
+    18."""
+    if mesh is not None:
+        raise _not_ported("remaster_propagate(mesh=...)", "item 18, parallel/mesh.py")
+    dev = engine.device
+    frames, refs = _as_tensor(frames, dev), _as_tensor(ref_frames, dev)
+    T, R = frames.shape[0], refs.shape[0]
+    S = min(ref_buffer_size, R)
+    pos = None if ref_positions is None else np.asarray(ref_positions)
+    win_starts = _remaster_window_starts(T, length, S, R, pos, future_frame_weight, frame0)
+    starts = list(range(0, T, length))
+    l01 = luma(frames)[..., None]  # (T, H, W, 1)
+    model = engine.model
+    outs, ref_cache, i = [], {}, 0
+    while i < len(starts):
+        ws, j = win_starts[i], i
+        while j < len(starts) and win_starts[j] == ws and j - i < REMASTER_GROUP:
+            j += 1
+        if ws not in ref_cache:  # only the current window's encoding is kept
+            with stage_timer("remaster_encode_refs"):
+                window = refs[ws:ws + S].permute(3, 0, 1, 2)[None]  # (1, 3, S, H, W)
+                ref_cache = {ws: model.encode_refs(window)}
+        reffeat, reffeat2 = ref_cache[ws]
+        chunks = []
+        for st in starts[i:j]:
+            c = l01[st:st + length]
+            if c.shape[0] < length:
+                c = torch.cat([c, c[-1:].expand(length - c.shape[0], -1, -1, -1)])
+            chunks.append(c)
+        n_real = len(chunks)
+        chunks += [chunks[-1]] * (REMASTER_GROUP - n_real)
+        with stage_timer("remaster_windows"):
+            batch = torch.stack(chunks).permute(0, 4, 1, 2, 3)  # (G, 1, length, H, W)
+            ab01g = model.colorize_with_refs(batch, reffeat, reffeat2).permute(0, 2, 3, 4, 1)
+        for k in range(n_real):
+            outs.append(ab01g[k][:min(length, T - starts[i + k])])
+        i = j
+    ab = torch.clamp(torch.cat(outs) * 255.0 - 128.0, -100.0, 100.0)
+    return torch.clamp(lab_to_rgb(torch.cat([l01 * 100.0, ab], dim=-1)), 0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -373,42 +591,97 @@ def _prefilter_refs(ref_frames: torch.Tensor, dark, dark_p, smooth, smooth_p, co
                       for s in range(0, ref_frames.shape[0], batch_size)])
 
 
-def _exemplar_dispatch(clip: Clip, ref_frames: torch.Tensor, is_ref: np.ndarray,
-                       render_speed: str, frame_propagate: bool, render_vivid: bool,
-                       ref_weight: float, merge_enabled: bool, max_memory_frames: int,
-                       engine_config: str, dev: torch.device, use_all_refs: bool = False):
-    """Work-size prep -> ColorMNet propagation -> LAB join -> ref-merge
-    blend: the colored frames at work size and the pad geometry.
+def _vivid_tweak(frames: torch.Tensor, sat: float, hue: float, batch_size: int) -> torch.Tensor:
+    """DeepRemaster's vivid tweak, ``batch_size`` frames at a time."""
+    return torch.cat([chroma_tweak(frames[s:s + batch_size], sat=sat, hue=int(hue))
+                      for s in range(0, frames.shape[0], batch_size)])
 
-    ``use_all_refs`` (encode modes 2/3) feeds the scene-change references
-    in the all-refs look-ahead order (``exemplar/allrefs.py``)
-    instead of at their own frames.  With ``merge_enabled`` the frames
-    that are not references are blended with their reference,
-    ``color * (1 - ref_weight) + ref * ref_weight``."""
-    wh, ww = smart_resize_shape(clip.width, clip.height, render_speed)
+
+def _exemplar_dispatch(clip: Clip, ref_frames: torch.Tensor, is_ref: np.ndarray,
+                       render_speed: str, ex_model: int, frame_propagate: bool,
+                       render_vivid: bool, ref_weight: float, merge_enabled: bool, ref_merge: int,
+                       max_memory_frames: int, engine_config: str, dev: torch.device,
+                       use_all_refs: bool = False, frame_mindim: int = 320,
+                       batch_size: int = 8):
+    """Work-size prep -> the engine of ``ex_model`` -> ref-merge blend: the
+    colored frames at work size and the pad geometry.
+
+    ColorMNet (0) and DeepEx (1) work at the SmartResize size of
+    ``render_speed`` (DeepEx at its own size, spline64 there and back);
+    DeepRemaster (2) at ``remaster_work_shape``, with the vivid pre-tweak
+    on the references and post-tweak on its output, over a reference
+    window of ``max_memory_frames`` (20 when 0); the hybrid (3) blends
+    ColorMNet with a vivid DeepEx at ``max(REFMERGE_WEIGHT[ref_merge],
+    0.3)``.  ``use_all_refs`` (encode modes 2/3, ColorMNet) feeds the
+    scene-change references in the all-refs look-ahead order
+    (``exemplar/allrefs.py``).  With ``merge_enabled`` the frames that are
+    not references are blended with their reference, ``color * (1 -
+    ref_weight) + ref * ref_weight``."""
+    if ex_model not in (0, 1, 2, 3):
+        raise ValueError(f"HAVC_deepex: unsupported ex_model {ex_model}")
+    if render_vivid and ex_model == 2:
+        with stage_timer("remaster_vivid"):
+            ref_frames = _vivid_tweak(ref_frames, DEF_VIVID_SAT_HIGH, DEF_VIVID_HUE_LOW,
+                                      batch_size)
+    if ex_model == 2:  # NetworkC needs /16 sides
+        wh, ww = remaster_work_shape(clip.width, clip.height, frame_mindim)
+    else:
+        wh, ww = smart_resize_shape(clip.width, clip.height, render_speed)
     with stage_timer("cm_work_resize"):  # aspect-preserving SmartResize
         work_frames, pad_meta = smart_resize_pad(clip.frames, wh, ww, "spline64")
         work_refs = smart_resize_pad(ref_frames, wh, ww, "spline64")[0]
-    # the engine runs at the pad112 geometry; propagate pads in
-    # normalised-LAB space and unpads back
-    ph, pw = pad112_geometry(wh, ww)[:2]
-    kw = dict(config=engine_config, work_size=(ph, pw), device=dev)
-    if max_memory_frames > 0:
-        kw["max_mem"] = int(max_memory_frames)
-    engine = _get_engine(**kw)
-    ref_ab = torch.clamp(rgb_to_lab(work_refs)[..., 1:3] / 110.0, -1.0, 1.0)
-    if use_all_refs:
-        eff, reset = allrefs_step_schedule(
-            allrefs_feed_schedule(is_ref), vid_length=len(work_frames),
-            reset_on_ref_update=render_vivid, max_memory_frames=max_memory_frames)
-        ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
-                                 feed_schedule=eff, reset_schedule=reset)
-    else:
-        ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
-                                 frame_propagate=frame_propagate, vivid=render_vivid)
-    with stage_timer("cm_join"):
-        lab = torch.cat([rgb_to_lab(work_frames)[..., 0:1], ab * 110.0], dim=-1)
-        colored_small = torch.clamp(lab_to_rgb(lab), 0.0, 1.0)
+
+    def run_colormnet(vivid):
+        # the engine runs at the pad112 geometry; propagate pads in
+        # normalised-LAB space and unpads back
+        ph, pw = pad112_geometry(wh, ww)[:2]
+        kw = dict(config=engine_config, work_size=(ph, pw), device=dev)
+        if max_memory_frames > 0:
+            kw["max_mem"] = int(max_memory_frames)
+        engine = _get_engine(**kw)
+        ref_ab = torch.clamp(rgb_to_lab(work_refs)[..., 1:3] / 110.0, -1.0, 1.0)
+        if use_all_refs:
+            eff, reset = allrefs_step_schedule(
+                allrefs_feed_schedule(is_ref), vid_length=len(work_frames),
+                reset_on_ref_update=vivid, max_memory_frames=max_memory_frames)
+            ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
+                                     feed_schedule=eff, reset_schedule=reset)
+        else:
+            ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
+                                     frame_propagate=frame_propagate, vivid=vivid)
+        with stage_timer("cm_join"):
+            lab = torch.cat([rgb_to_lab(work_frames)[..., 0:1], ab * 110.0], dim=-1)
+            return torch.clamp(lab_to_rgb(lab), 0.0, 1.0)
+
+    def run_deepex(vivid):
+        engine = DeepExEngine(render_speed, dev)
+        with stage_timer("deepex_resize"):
+            dx_frames = resize(work_frames, engine.h, engine.w, "spline64")
+            dx_refs = resize(work_refs, engine.h, engine.w, "spline64")
+        out = deepex_propagate(engine, dx_frames, dx_refs, is_ref,
+                               frame_propagate=frame_propagate, vivid=vivid)
+        with stage_timer("deepex_resize"):
+            return resize(out, wh, ww, "spline64")
+
+    if ex_model == 0:
+        colored_small = run_colormnet(render_vivid)
+    elif ex_model == 1:
+        colored_small = run_deepex(render_vivid)
+    elif ex_model == 3:  # DeepEx always vivid, weighted by the ref-merge level
+        a = run_colormnet(render_vivid)
+        b = run_deepex(True)
+        mw = max(REFMERGE_WEIGHT[ref_merge], 0.3)
+        colored_small = a * (1.0 - mw) + b * mw
+    else:  # the references' window slides over every scene change
+        ref_pos = np.nonzero(is_ref)[0]
+        colored_small = remaster_propagate(
+            RemasterEngine(frame_mindim, dev), work_frames,
+            torch.stack([work_refs[i] for i in ref_pos]), ref_positions=ref_pos,
+            ref_buffer_size=int(max_memory_frames) if max_memory_frames > 0 else 20)
+        if render_vivid:
+            with stage_timer("remaster_vivid"):
+                colored_small = _vivid_tweak(colored_small, DEF_VIVID_SAT_LOW,
+                                             DEF_VIVID_HUE_HIGH, batch_size)
     if merge_enabled and 0.0 < ref_weight < 1.0:
         with stage_timer("cm_ref_merge"):  # the references pass through unblended
             blend = colored_small * (1.0 - ref_weight) + work_refs * ref_weight
@@ -479,7 +752,9 @@ def HAVC_deepex(
     frame_mindim: int = 320,
     device=None,
 ) -> Clip:
-    """Exemplar-based colorization with ColorMNet (``ex_model`` 0).
+    """Exemplar-based colorization: ``ex_model`` 0 = ColorMNet, 1 =
+    Deep-Exemplar, 2 = DeepRemaster (at its /16 geometry with
+    ``frame_mindim`` as the smaller side), 3 = the hybrid.
 
     ``method``: 0 = HAVC refs same as video, 1 = + RF same as video, 2 = +
     RF different, 3 = external RF same as video, 4 = external RF
@@ -498,7 +773,7 @@ def HAVC_deepex(
     ``encode_mode`` 2/3 feed the references in the all-refs look-ahead
     order.  Same parameters and defaults as the JAX package's, plus
     ``device``."""
-    del enable_resize, scene_mesh, frame_mindim
+    del enable_resize, scene_mesh
     if clip is None:
         raise ValueError("HAVC_deepex: clip is required")
     if vivid is not None:
@@ -524,9 +799,6 @@ def HAVC_deepex(
         raise ValueError(f"HAVC_deepex: method {method} requires clip_ref (external video)")
     if clip_ref is None and sc_framedir is None:
         raise ValueError("HAVC_deepex: no reference source (clip_ref/sc_framedir)")
-    if ex_model != 0:
-        raise _not_ported(f"HAVC_deepex ex_model={ex_model} (DeepEx / DeepRemaster / hybrid)",
-                          "item 16, DeepEx and DeepRemaster")
 
     if method in (5, 6):  # an external colored clip
         return HAVC_restore_video(
@@ -586,11 +858,12 @@ def HAVC_deepex(
     # "same as video" methods propagate the video's own colorized frames;
     # "different" methods insert the exemplar's own key/value
     frame_propagate = method in (0, 1, 3, 5)
-    if max_memory_frames > 0:
-        render_vivid = False  # a bounded memory cannot survive resets
+    if ex_model in (0, 3) and max_memory_frames > 0:
+        render_vivid = False  # a bounded ColorMNet memory cannot survive resets
     colored_small, pad_meta = _exemplar_dispatch(
-        clip, ref_frames, is_ref, render_speed, frame_propagate, render_vivid, ref_weight,
-        enable_refmerge, max_memory_frames, engine_config, dev, encode_mode in (2, 3))
+        clip, ref_frames, is_ref, render_speed, ex_model, frame_propagate, render_vivid,
+        ref_weight, enable_refmerge, ref_merge, max_memory_frames, engine_config, dev,
+        encode_mode in (2, 3), frame_mindim, batch_size)
     with stage_timer("cm_restore"):
         out = _restore_full(clip, colored_small, pad_meta, batch_size).with_sc(clip_ref.sc)
     return out.to_host() if to_host else out
@@ -656,10 +929,12 @@ def HAVC_restore_video(
     (``frame_propagate=False``).  ``ref_merge`` > 0 with method 5: the
     reference stands at every frame, the detection gives the propagation
     references, and the other frames are blended with the reference at
-    ``REFMERGE_WEIGHT[ref_merge]``.  ``encode_first`` chose one of two
+    ``REFMERGE_WEIGHT[ref_merge]``.  ``ex_model`` picks the engine as in
+    ``HAVC_deepex``; DeepRemaster takes a reference every 10 frames unless
+    ``ref_freq`` says otherwise.  ``encode_first`` chose one of two
     servers in the reference implementation and changes nothing here.
     Same parameters and defaults as the JAX package's, plus ``device``."""
-    del encode_first, frame_mindim
+    del encode_first
     if clip is None or clip_ref is None:
         raise ValueError("HAVC_restore_video: clip and clip_ref are required")
     if method not in (5, 6):
@@ -669,9 +944,6 @@ def HAVC_restore_video(
 
         set_weights_dir(torch_dir)
     engine_config = resolve_engine_config(engine_config)
-    if ex_model != 0:
-        raise _not_ported(f"HAVC_restore_video ex_model={ex_model} (DeepEx / DeepRemaster / "
-                          "hybrid)", "item 16, DeepEx and DeepRemaster")
     dev = resolve_device(device)
     to_host = not clip.on_device
     clip, clip_ref = clip.to_device(dev), clip_ref.to_device(dev)
@@ -686,7 +958,8 @@ def HAVC_restore_video(
 
     if ref_thresh is None or ref_thresh == 0:
         ref_thresh = 0.10
-    ref_freq = ref_freq or 0
+    if ref_freq is None or ref_freq == 0:
+        ref_freq = 10 if ex_model == 2 else 0  # DeepRemaster needs periodic references
     # the propagation references come from a detection of the colored
     # reference; with ref-merge the reference's flags are every frame
     with stage_timer("cm_scene_detect"):
@@ -704,12 +977,81 @@ def HAVC_restore_video(
     if len(is_ref) and not is_ref[0]:
         is_ref[0] = True
     clip_ref = clip_ref.with_sc(flags)
-    if max_memory_frames > 0:
-        render_vivid = False  # a bounded memory cannot survive resets
+    if ex_model in (0, 3) and max_memory_frames > 0:
+        render_vivid = False  # a bounded ColorMNet memory cannot survive resets
 
     colored_small, pad_meta = _exemplar_dispatch(
-        clip, clip_ref.frames, is_ref, render_speed, False, render_vivid, ref_weight,
-        merge_enabled, max_memory_frames, engine_config, dev, encode_mode in (2, 3))
+        clip, clip_ref.frames, is_ref, render_speed, ex_model, False, render_vivid, ref_weight,
+        merge_enabled, ref_merge, max_memory_frames, engine_config, dev, encode_mode in (2, 3),
+        frame_mindim, batch_size)
     with stage_timer("cm_restore"):
         out = _restore_full(clip, colored_small, pad_meta, batch_size).with_sc(clip_ref.sc)
+    return out.to_host() if to_host else out
+
+
+@torch.inference_mode()
+def HAVC_DeepRemaster(
+    clip: Clip,
+    length: int = 2,
+    render_vivid: bool = False,
+    ref_dir: Optional[str] = None,
+    ref_minedge: int = 256,
+    frame_mindim: int = 320,
+    ref_buffer_size: int = 20,
+    device_index: int = 0,
+    inference_mode: bool = False,
+    mode: int = 0,
+    clip_ref: Optional[Clip] = None,
+    render_speed: str = "medium",
+    device=None,
+) -> Clip:
+    """DeepRemaster from a folder of reference images or a colored clip.
+
+    ``ref_dir``: the first ``ref_buffer_size`` ``ref_nnnnnn`` images,
+    Lanczos-resized to the clip's size; mode 0 keeps the window on them,
+    mode 1 slides it by their frame numbers.  ``clip_ref``:
+    ``ref_buffer_size`` frames spread evenly over it, at their positions.
+    ``length`` frames a forward (at least 2); the work geometry is
+    ``remaster_work_shape`` with ``frame_mindim``; ``render_vivid`` tweaks
+    the references (hue +3, sat x1.30) and the output (hue +5, sat
+    x1.15).  ``ref_minedge``, ``device_index`` and ``inference_mode`` are
+    accepted for the reference implementation's signature and change
+    nothing.  Same parameters and defaults as the JAX package's, plus
+    ``device``."""
+    del device_index, inference_mode, ref_minedge, render_speed
+    dev = resolve_device(device)
+    to_host = not clip.on_device
+    clip = clip.to_device(dev)
+    ref_positions = None
+    if ref_dir is not None:
+        refs_map = read_reference_dir(ref_dir)
+        keys = sorted(refs_map)[:max(ref_buffer_size, 1)]
+        refs = torch.stack([resize(torch.from_numpy(refs_map[k]).to(dev), clip.height,
+                                   clip.width, "lanczos") for k in keys])
+        if mode != 0:  # the window slides by the references' frame numbers
+            ref_positions = np.asarray(keys)
+    elif clip_ref is not None:
+        idx = np.linspace(0, clip_ref.num_frames - 1,
+                          min(ref_buffer_size, clip_ref.num_frames), dtype=int)
+        ref_frames = clip_ref.to_device(dev).frames
+        refs = torch.stack([ref_frames[int(i)] for i in idx])
+        ref_positions = idx
+    else:
+        raise ValueError("HAVC_DeepRemaster: ref_dir is unset")
+    wh, ww = remaster_work_shape(clip.width, clip.height, frame_mindim)
+    with stage_timer("cm_work_resize"):
+        work_frames, pad_meta = smart_resize_pad(clip.frames, wh, ww, "spline64")
+    if render_vivid:
+        with stage_timer("remaster_vivid"):
+            refs = _vivid_tweak(refs, DEF_VIVID_SAT_HIGH, DEF_VIVID_HUE_LOW, 8)
+    with stage_timer("cm_work_resize"):
+        work_refs = smart_resize_pad(refs, wh, ww, "spline64")[0]
+    colored_small = remaster_propagate(RemasterEngine(frame_mindim, dev), work_frames, work_refs,
+                                       length=max(2, length), ref_positions=ref_positions,
+                                       ref_buffer_size=ref_buffer_size)
+    if render_vivid:
+        with stage_timer("remaster_vivid"):
+            colored_small = _vivid_tweak(colored_small, DEF_VIVID_SAT_LOW, DEF_VIVID_HUE_HIGH, 8)
+    with stage_timer("cm_restore"):
+        out = _restore_full(clip, colored_small, pad_meta, 8)
     return out.to_host() if to_host else out

@@ -7,7 +7,8 @@ mechanical:
   ``PtConv`` / ``PtConvTranspose`` wrappers is dropped
   (``up0/shuf/conv/conv/Conv_0/kernel`` -> ``up0.shuf.conv.conv.weight``);
 * conv ``kernel`` HWIO -> OIHW ``transpose(3, 2, 0, 1)`` (depthwise
-  ``(7, 7, 1, C)`` -> ``(C, 1, 7, 7)``); Dense ``kernel (in, out)`` -> ``(out, in)``;
+  ``(7, 7, 1, C)`` -> ``(C, 1, 7, 7)``); a 3-D conv's DHWIO -> OIDHW
+  ``transpose(4, 3, 0, 1, 2)``; Dense ``kernel (in, out)`` -> ``(out, in)``;
 * a ``PtConvTranspose`` kernel (flax ``ConvTranspose`` with
   ``transpose_kernel=True``) is stored ``(kH, kW, O, I)``: the same
   ``transpose(3, 2, 0, 1)`` gives ``nn.ConvTranspose2d``'s ``(I, O, kH,
@@ -16,7 +17,8 @@ mechanical:
 * LayerNorm / BatchNorm ``scale`` -> ``weight``; BatchNorm ``mean``/``var``
   -> ``running_mean``/``running_var``;
 * raw parameters (``gamma``, ``query_feat``, ``query_embed``,
-  ``level_embed``) and ``bias`` as they are.
+  ``level_embed``, the folded BatchNorms' ``bn_scale``/``bn_bias``/
+  ``bn_mean``/``bn_var``) and ``bias`` as they are.
 
 It takes the trees ``havc_tpu`` initialises and the converted ``.npz``
 checkpoints the JAX engine registry reads (engines.load_npz_params).
@@ -51,6 +53,8 @@ def torch_key(path: Tuple[str, ...]) -> str:
 
 
 def _kernel_perm(ndim: int):
+    if ndim == 5:
+        return (4, 3, 0, 1, 2)  # DHWIO -> OIDHW
     if ndim == 4:
         return (3, 2, 0, 1)  # HWIO -> OIHW
     if ndim == 2:

@@ -66,8 +66,8 @@ def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """flax ``lecun_normal``: truncated normal on [-2, 2] std units, scaled
-    to variance 1/fan_in.  ``fan_in`` is every dim but the first (OIHW
-    conv, (out, in) Linear, or IOHW transposed conv, whose flax kernel
+    to variance 1/fan_in.  ``fan_in`` is every dim but the first (OIHW or
+    OIDHW conv, (out, in) Linear, or IOHW transposed conv, whose flax kernel
     ``(kH, kW, O, I)`` has the same fan-in)."""
     fan_in = math.prod(w.shape[1:])
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
@@ -88,7 +88,7 @@ def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> nn.Modu
     Modules with parameters of their own (``query_feat``, ``gamma``, ...)
     initialise those in their ``reset_flax`` method."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()

@@ -26,11 +26,14 @@ is the decoded gray, so only the chroma planes come back and the luma
 deflicker runs on the host's Y planes).
 
 ``HAVC_restore_video_streaming`` recolors a B&W video from a colored
-reference video with ColorMNet (``ex_model=0``), carrying the memory
-network's state across chunks so that the chunked output equals the
-whole clip's.  Decisions are taken on the host from integers it already
-holds; the restore path downloads one vector of scene flags per chunk,
-which its frame loop needs before it can be queued.
+reference video with ColorMNet, Deep-Exemplar, DeepRemaster or the
+hybrid, carrying each engine's state across chunks (ColorMNet's memory,
+DeepEx's scene reference, DeepRemaster's reference window with a
+look-ahead cursor over the reference video) so that the chunked output
+equals the whole clip's.  Decisions are taken on the host from integers
+it already holds; the restore path downloads one vector of scene flags
+per chunk (per batch of 32 reference frames for DeepRemaster), which the
+engines' loops need before they can be queued.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from . import engines, presets
-from .api import _not_ported, bw_tune_frames
+from .api import bw_tune_frames
 from .filters import (chroma_bright_tweak, colormap_filter, dark_tweak, recover_clip_luma,
                       recover_clip_luma_y)
 from .io.stream import FrameReader, stream_batches
@@ -691,11 +694,27 @@ def HAVC_restore_video_streaming(
     device=None,
 ) -> int:
     """Exemplar restore as a bounded-memory stream: a B&W video recolored
-    from a synchronized colored reference video by ColorMNet
-    (``ex_model=0``), chunk by chunk, the memory network's state carried
-    from one chunk to the next (``resume_state``) so that the output
-    equals the whole clip's.  Same parameters and defaults as the JAX
-    package's, plus ``device``.
+    from a synchronized colored reference video, chunk by chunk, with each
+    engine's state carried across chunks so that the output equals the
+    whole clip's.  Same parameters and defaults as the JAX package's, plus
+    ``device``.
+
+    - ``ex_model=0`` (ColorMNet): the memory network's state
+      (``resume_state``) flows from one chunk to the next.
+    - ``ex_model=1`` (Deep-Exemplar): frames are independent given their
+      scene's reference, so the carry is the current scene's reference,
+      set on the first frame of a chunk that starts inside a scene.
+    - ``ex_model=2`` (DeepRemaster): at ``remaster_work_shape``
+      (``frame_mindim``), ``chunk_size`` rounded up to an even count; a
+      reference every ``ref_freq`` (10) frames.  A look-ahead cursor
+      decodes the reference video ahead of the input just far enough to
+      know the next ``ref_buffer_size`` (``max_memory_frames`` or 20)
+      references, and each chunk gets the trimmed slice of references
+      with their global positions (``frame0``), so the sliding window
+      replays the whole clip's; output stops where the reference ends.
+      Memory: the chunk plus the window of references at work size.
+    - ``ex_model=3`` (the hybrid): ``0.7 * ColorMNet + 0.3 * DeepEx``
+      (vivid).
 
     A reference frame is a scene change when its mean absolute luma
     difference from the previous scene change's exceeds ``sc_threshold``
@@ -703,33 +722,39 @@ def HAVC_restore_video_streaming(
     reference video may have its own geometry: both meet at the work size
     (SmartResize of ``render_speed``, or ``work_size``).  ``gray_input``,
     ``transfer_format``, ``pipeline_depth`` and ``sink`` behave as in
-    :func:`HAVC_main_streaming`.  ``ex_model`` 1/2/3 (DeepEx,
-    DeepRemaster, the hybrid) raise ``NotImplementedError`` (ROADMAP queue
-    1, item 16)."""
-    from .exemplar import (_get_engine, colormnet_propagate, pad112_geometry,
-                           resolve_engine_config, smart_resize_shape)
+    :func:`HAVC_main_streaming`."""
+    from .exemplar import (DEF_VIVID_HUE_HIGH, DEF_VIVID_HUE_LOW, DEF_VIVID_SAT_HIGH,
+                           DEF_VIVID_SAT_LOW, DeepExEngine, RemasterEngine, _get_engine,
+                           colormnet_propagate, deepex_propagate, pad112_geometry,
+                           remaster_propagate, remaster_work_shape, resolve_engine_config,
+                           smart_resize_shape)
+    from .ops.chroma import chroma_tweak
     from .ops.colorspace import lab_to_rgb, rgb_to_lab
     from .ops.resize import smart_resize_pad, smart_resize_restore
 
     if ex_model not in (0, 1, 2, 3):
         raise ValueError(f"HAVC_restore_video_streaming: unsupported ex_model {ex_model}")
-    if ex_model != 0:
-        raise _not_ported(f"HAVC_restore_video_streaming ex_model={ex_model} (DeepEx, "
-                          "DeepRemaster, the hybrid)", "item 16, DeepEx and DeepRemaster")
     if sink not in ("video", "null", "device"):
         raise ValueError(f"HAVC_restore_video_streaming: unknown sink {sink!r}")
-    del frame_mindim  # DeepRemaster's geometry
     dev = resolve_device(device)
     engine_config = resolve_engine_config(engine_config)
     if ref_freq is None:
-        ref_freq = 0
+        ref_freq = 10 if ex_model == 2 else 0  # DeepRemaster needs periodic references
+    length = 2  # DeepRemaster's frames a forward
+    if ex_model == 2 and chunk_size % length:
+        chunk_size += 1  # chunk edges on window edges
 
     fps, w, h, use_gray = _probe(path_in, gray_input)
     # the output luma is the decoded B&W luma, so with the gray upload the
     # host can rebuild frames from the chroma planes alone
     use_uv420, use_i420 = _resolve_transfer(transfer_format, h % 2 == 0 and w % 2 == 0,
                                             use_gray)
-    wh, ww = smart_resize_shape(w, h, render_speed) if work_size is None else work_size
+    if work_size is not None:
+        wh, ww = work_size
+    elif ex_model == 2:  # NetworkC needs /16 sides
+        wh, ww = remaster_work_shape(w, h, frame_mindim)
+    else:
+        wh, ww = smart_resize_shape(w, h, render_speed)
     _, pad_meta = smart_resize_pad(torch.zeros((1, h, w, 3), device=dev), wh, ww)
 
     def pad_fn(x):
@@ -739,14 +764,6 @@ def HAVC_restore_video_streaming(
     def restore_fn(hi, lo):
         with stage_timer("restore"):
             return recover_clip_luma(hi, smart_resize_restore(lo, pad_meta, "spline64"))
-
-    # the engine runs at the pad112 geometry (the 1/14 and 1/16 grids
-    # align); colormnet_propagate pads in normalised-LAB space and unpads
-    ph, pw = pad112_geometry(wh, ww)[:2]
-    kw = dict(config=engine_config, work_size=(ph, pw), device=dev)
-    if max_memory_frames > 0:
-        kw["max_mem"] = int(max_memory_frames)
-    cm_engine = _get_engine(**kw)
 
     def sc_scan(refs, last, has_last, n0):
         """Resumable scene detection on the reference frames, one device
@@ -765,6 +782,14 @@ def HAVC_restore_video_streaming(
             return torch.stack(flags), last, has_last
 
     state = None  # ColorMNet carry
+    if ex_model in (0, 3):
+        # the engine runs at the pad112 geometry (the 1/14 and 1/16 grids
+        # align); colormnet_propagate pads in normalised-LAB space and unpads
+        ph, pw = pad112_geometry(wh, ww)[:2]
+        kw = dict(config=engine_config, work_size=(ph, pw), device=dev)
+        if max_memory_frames > 0:
+            kw["max_mem"] = int(max_memory_frames)
+        cm_engine = _get_engine(**kw)
 
     def run_colormnet(work, work_refs, is_ref):
         nonlocal state
@@ -775,6 +800,26 @@ def HAVC_restore_video_streaming(
         with stage_timer("cm_join"):
             lab = torch.cat([rgb_to_lab(work)[..., 0:1], ab * 110.0], dim=-1)
             return torch.clamp(lab_to_rgb(lab), 0.0, 1.0)
+
+    carry_ref = None  # DeepEx: the current scene's reference at its size
+    if ex_model in (1, 3):
+        dx_engine = DeepExEngine(render_speed, dev)
+
+    def run_deepex(work, work_refs, is_ref, vivid):
+        nonlocal carry_ref
+        with stage_timer("deepex_resize"):
+            dxf = torch.clamp(resize(work, dx_engine.h, dx_engine.w, "spline64"), 0.0, 1.0)
+            dxr = torch.clamp(resize(work_refs, dx_engine.h, dx_engine.w, "spline64"), 0.0, 1.0)
+        flags = np.asarray(is_ref, bool).copy()
+        if not flags[0]:  # a chunk that starts inside a scene: its reference first
+            flags[0] = True
+            dxr = torch.cat([carry_ref, dxr[1:]])
+        out = deepex_propagate(dx_engine, dxf, dxr, flags, frame_propagate=frame_propagate,
+                               vivid=vivid)
+        li = int(np.nonzero(flags)[0][-1])
+        carry_ref = dxr[li:li + 1]
+        with stage_timer("deepex_resize"):
+            return torch.clamp(resize(out, wh, ww, "spline64"), 0.0, 1.0)
 
     writer = _open_writer(path_out, codec, fps, w, h) if sink == "video" else None
     # uv420: the host Y is the studio-swing map of its own decoded gray
@@ -787,32 +832,121 @@ def HAVC_restore_video_streaming(
             cleanup.callback(writer.release)
         with FrameReader(path_ref) as probe_ref:
             rh, rw = probe_ref.height or h, probe_ref.width or w
-        # both videos decode on background threads, a chunk at a time
-        chunks_in = cleanup.enter_context(contextlib.closing(
-            stream_batches(path_in, chunk_size, prefetch=2, count=count, gray=use_gray)))
-        chunks_ref = cleanup.enter_context(contextlib.closing(
-            stream_batches(path_ref, chunk_size, prefetch=2, count=count)))
         last_ref_luma = torch.zeros((rh, rw), device=dev)
         has_last = torch.zeros((), dtype=torch.bool, device=dev)
+        # the input decodes on a background thread, a chunk at a time
+        chunks_in = cleanup.enter_context(contextlib.closing(
+            stream_batches(path_in, chunk_size, prefetch=2, count=count, gray=use_gray)))
+        if ex_model == 2:
+            # DeepRemaster: a look-ahead cursor over the reference video
+            # finds the scene-change references ahead of the input; it
+            # holds the reference window's frames at work size
+            ref_reader = cleanup.enter_context(FrameReader(path_ref))
+            rm_engine = RemasterEngine(frame_mindim, dev)
+            buf = int(max_memory_frames) if max_memory_frames > 0 else 20
+            refs_found = dict(imgs=[], pos=[], base=0, n=0, eof=False)
+
+            def scan_more_refs(batch: int = 32):
+                nonlocal last_ref_luma, has_last
+                with stage_timer("decode"):
+                    fr = ref_reader.read(batch)
+                if fr is None:
+                    refs_found["eof"] = True
+                    return
+                with stage_timer("upload"):
+                    rgb = u8_to_unit(up_ref(fr))
+                flags, last_ref_luma, has_last = sc_scan(rgb, last_ref_luma, has_last,
+                                                         refs_found["n"])
+                idx = np.nonzero(flags.cpu().numpy())[0]  # which frames to keep
+                if len(idx):
+                    sel = torch.stack([rgb[int(i)] for i in idx])
+                    if render_vivid:  # the pre-tweak at the reference's size
+                        sel = chroma_tweak(sel, sat=DEF_VIVID_SAT_HIGH, hue=int(DEF_VIVID_HUE_LOW))
+                    refs_found["imgs"] += list(pad_fn(sel))
+                    refs_found["pos"] += [refs_found["n"] + int(i) for i in idx]
+                refs_found["n"] += len(fr)
+                if len(fr) < batch:
+                    refs_found["eof"] = True
+
+            def found() -> int:
+                return refs_found["base"] + len(refs_found["pos"])
+
+            def ensure_refs(k: int):
+                while found() < k and not refs_found["eof"]:
+                    scan_more_refs()
+
+            ensure_refs(buf)
+            S = min(buf, found()) if refs_found["eof"] else buf
+            half_idx = max(round(S * (1.0 - 0.5)) - 1, 0)
+            ws = 0  # the sliding window's global start
+
+            def run_remaster(work, f0, t):
+                nonlocal ws
+                ws0, base = ws, refs_found["base"]
+                # replay the window's advance for every window start of the
+                # chunk, decoding the reference video ahead on demand
+                for st in range(f0, f0 + t, length):
+                    while True:
+                        ensure_refs(ws + S + 1)
+                        if refs_found["eof"] and ws + S >= found():
+                            break
+                        if not st > refs_found["pos"][ws + half_idx - base]:
+                            break
+                        ws += 1
+                hi = min(ws + S, found())
+                colored = remaster_propagate(
+                    rm_engine, work, torch.stack(refs_found["imgs"][ws0 - base:hi - base]),
+                    length=length, ref_positions=np.asarray(refs_found["pos"][ws0 - base:hi - base]),
+                    ref_buffer_size=buf, frame0=f0)
+                if render_vivid:
+                    colored = chroma_tweak(colored, sat=DEF_VIVID_SAT_LOW,
+                                           hue=int(DEF_VIVID_HUE_HIGH))
+                if ws > base:  # references below the window are not read again
+                    del refs_found["imgs"][:ws - base], refs_found["pos"][:ws - base]
+                    refs_found["base"] = ws
+                return colored
+        else:
+            chunks_ref = cleanup.enter_context(contextlib.closing(
+                stream_batches(path_ref, chunk_size, prefetch=2, count=count)))
         emitted = 0
         while count is None or emitted < count:
             n = chunk_size if count is None else min(chunk_size, count - emitted)
             with stage_timer("decode"):  # the wait for the decode threads
                 bw_u8 = next(chunks_in, None)
-                refs_u8 = next(chunks_ref, None) if bw_u8 is not None else None
-            if bw_u8 is None or refs_u8 is None:
+                refs_u8 = None
+                if bw_u8 is not None and ex_model != 2:
+                    refs_u8 = next(chunks_ref, None)
+            if bw_u8 is None or (ex_model != 2 and refs_u8 is None):
                 break
-            t = min(len(bw_u8), len(refs_u8))
+            if ex_model == 2:  # no input frame past the reference's end
+                while not refs_found["eof"] and refs_found["n"] < emitted + len(bw_u8):
+                    scan_more_refs()
+                t = min(len(bw_u8), max(refs_found["n"] - emitted, 0))
+                if t <= 0:
+                    break
+            else:
+                t = min(len(bw_u8), len(refs_u8))
             bw_u8 = bw_u8[:t]
             with stage_timer("upload"):
                 bw = u8_to_unit(up_in(bw_u8))
-                refs = u8_to_unit(up_ref(refs_u8[:t]))
             if use_gray:
                 bw = gray_to_rgb(bw)
             work = pad_fn(bw)
-            flags, last_ref_luma, has_last = sc_scan(refs, last_ref_luma, has_last, emitted)
-            is_ref = flags.cpu().numpy()  # the frame loop's branches need them
-            colored_small = run_colormnet(work, pad_fn(refs), is_ref)
+            if ex_model == 2:
+                colored_small = run_remaster(work, emitted, t)
+            else:
+                with stage_timer("upload"):
+                    refs = u8_to_unit(up_ref(refs_u8[:t]))
+                flags, last_ref_luma, has_last = sc_scan(refs, last_ref_luma, has_last, emitted)
+                is_ref = flags.cpu().numpy()  # the engines' branches need them
+                work_refs = pad_fn(refs)
+                if ex_model == 0:
+                    colored_small = run_colormnet(work, work_refs, is_ref)
+                elif ex_model == 1:
+                    colored_small = run_deepex(work, work_refs, is_ref, render_vivid)
+                else:  # the hybrid
+                    a = run_colormnet(work, work_refs, is_ref)
+                    colored_small = a * 0.7 + run_deepex(work, work_refs, is_ref, True) * 0.3
             full = restore_fn(bw, colored_small)
             pipe.push(_pack(full, use_uv420, use_i420), bw_u8 if use_uv420 else None, t)
             emitted += t

@@ -28,6 +28,10 @@ from havc_tpu_torch import api as tapi
 from havc_tpu_torch.ops import chroma as tchroma
 from havc_tpu_torch.ops import merge as tmerge
 
+from test_torch_deepex_surface import deepex_engines  # noqa: F401  (fixture)
+from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
+    colored_clip, colormnet_both, exemplar_both, gray_clip, seeded_colormnet)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 CHAIN_TOL = 1e-4
@@ -237,14 +241,25 @@ def test_color_adjust(tune, mode):
     _close(want, got)
 
 
-def test_unported_restore_options_raise():
-    """A re-color by DeepEx or DeepRemaster names ROADMAP item 16 (ColorMNet,
-    DeepExModel 0, is ported)."""
-    clip = havc_tpu_torch.Clip(frames=_clip())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tapi.HAVC_main_restore(clip, clip, DeepExModel=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tapi.HAVC_restore_video(clip, clip, ex_model=2, device="cpu")
+def test_unported_restore_options_raise(deepex_engines):
+    """A re-color by DeepEx is ported: ``HAVC_main_restore(clip_colored=...,
+    DeepExModel=1)`` against the JAX package's (DeepEx at temperature
+    1e-10, a hard argmax: at most 2 % of the values more than 1e-4 apart,
+    none more than 0.02; tests/test_torch_deepex_surface.py's engines)."""
+    gray, colored = gray_clip(), colored_clip()
+    want = havc_tpu.api.HAVC_main_restore(JClip(frames=gray.copy()),
+                                          JClip(frames=colored.copy()), DeepExModel=1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))  # as tests/test_torch_streaming.py's workers do
+    try:
+        got = tapi.HAVC_main_restore(havc_tpu_torch.Clip(frames=gray.copy()),
+                                     havc_tpu_torch.Clip(frames=colored.copy()), DeepExModel=1,
+                                     device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    d = np.abs(got.frames - np.asarray(want.frames))
+    assert got.frames.shape == gray.shape
+    assert np.mean(d > 1e-4) <= 0.02 and d.max() <= 0.02, (np.mean(d > 1e-4), d.max())
 
 
 def test_setters_change_the_shared_packs():
@@ -279,7 +294,6 @@ NOT_PORTED = {
     "HAVC_export_list_frames": "13 (the reference-frame export helpers)",
     "HAVC_ddeoldify": "13 (the legacy wrappers)",
     "HAVC_cmnet": "13 (the legacy wrappers)",
-    "HAVC_DeepRemaster": "16 (DeepEx and DeepRemaster)",
 }
 MODULES = ("api.py", "streaming.py", os.path.join("exemplar", "__init__.py"))
 

@@ -496,17 +496,23 @@ def test_deepex_defaults_to_cuda():
             fn(havc_tpu_torch.Clip(frames=frames), ref)
 
 
-@pytest.mark.parametrize("fn,kw", [("HAVC_deepex", dict(ex_model=1)),
-                                   ("HAVC_deepex", dict(ex_model=2)),
-                                   ("HAVC_deepex", dict(ex_model=3)),
+@pytest.mark.parametrize("fn,kw", [("deepex_propagate", dict(mesh=object())),
+                                   ("remaster_propagate", dict(mesh=object())),
+                                   ("HAVC_deepex", dict(ex_model=3, scene_parallel=True)),
                                    ("HAVC_deepex", dict(scene_parallel=True)),
-                                   ("HAVC_restore_video", dict(ex_model=1))],
+                                   ("HAVC_deepex", dict(ex_model=1, scene_parallel=True))],
                          ids=["deepex", "remaster", "hybrid", "scene_parallel", "restore_deepex"])
 def test_unported_exemplar_options_raise(fn, kw):
-    """DeepEx, DeepRemaster and the hybrid name ROADMAP item 16,
-    ``scene_parallel`` item 18."""
+    """What is left unported names ROADMAP item 18 with every engine:
+    ``mesh=`` (sharding DeepEx's frame batches or DeepRemaster's windows
+    over several devices) and ``scene_parallel`` (the scene-batched
+    ColorMNet scan).  DeepEx, DeepRemaster and the hybrid themselves run
+    (tests/test_torch_deepex_surface.py)."""
     frames = _scene_clip(n_scenes=1, per=2, h=32, w=32)
     ref = havc_tpu_torch.Clip(frames=frames).with_sc(havc_tpu_torch.SceneFlags.every(2, 1))
-    item = "item 18" if kw.get("scene_parallel") else "item 16"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {item}"):
-        getattr(havc_tpu_torch, fn)(havc_tpu_torch.Clip(frames=frames), ref, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: item 18"):
+        if fn.endswith("_propagate"):  # the mesh is refused before the engine is read
+            getattr(tex, fn)(None, frames, frames, np.ones(2, bool), **kw)
+        else:
+            getattr(havc_tpu_torch, fn)(havc_tpu_torch.Clip(frames=frames), ref, device="cpu",
+                                        **kw)

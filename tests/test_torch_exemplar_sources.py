@@ -243,6 +243,12 @@ def test_new_entry_points_default_to_cuda(tmp_path):
                  lambda: havc_tpu_torch.HAVC_colorizer_fast(clip),
                  lambda: havc_tpu_torch.HAVC_ColorAdjust(ref),
                  lambda: havc_tpu_torch.HAVC_main_restore(clip, ref),
-                 lambda: havc_tpu_torch.HAVC_read_video(str(path))):
+                 lambda: havc_tpu_torch.HAVC_read_video(str(path)),
+                 lambda: havc_tpu_torch.HAVC_DeepRemaster(clip, clip_ref=ref),
+                 lambda: havc_tpu_torch.HAVC_deepex(clip, ref.with_sc(
+                     havc_tpu_torch.SceneFlags.every(len(frames), 4)), ex_model=1),
+                 lambda: havc_tpu_torch.HAVC_restore_video(clip, ref, ex_model=2),
+                 lambda: tex.DeepExEngine(),
+                 lambda: tex.RemasterEngine()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

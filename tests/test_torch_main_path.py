@@ -194,14 +194,38 @@ def test_havc_main_without_cuda_raises():
         havc_tpu_torch.HAVC_main(clip)
 
 
-def test_unported_branches_raise():
-    """DeepEx and FrameInterp 1-4 (Deep-Exemplar) name ROADMAP item 16."""
-    clip = havc_tpu_torch.Clip(frames=_gray_clip())
-    for kw in (dict(EnableDeepEx=True, DeepExModel=1), dict(FrameInterp=1),
-               dict(FrameInterp=4), dict(Preset="Placebo", FrameInterp=1),
-               dict(Preset="VerySlow", FrameInterp=2)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            havc_tpu_torch.HAVC_main(clip, device="cpu", **kw)
+def test_unported_branches_raise(engines_pair, monkeypatch):
+    """DeepEx (``DeepExModel=1``) and FrameInterp 1-4 (Deep-Exemplar between
+    the sparse references) are ported: they run and return the clip's
+    shape (small classic engines at render factor 4, the registry's seeded
+    Deep-Exemplar at a 40x64 work size; their parity with the JAX package
+    is tests/test_torch_deepex_surface.py's and test_torch_deepex_interp.py's)."""
+    from havc_tpu_torch import exemplar as tex
+
+    cpu = torch.device("cpu")
+    (_, tm_do), (_, tm_dd) = engines_pair
+    monkeypatch.setitem(tengines.registry._cache, ("deoldify", "video", cpu), tm_do)
+    monkeypatch.setitem(tengines.registry._cache, ("ddcolor", "artistic", cpu), tm_dd)
+    t_do, t_dd = tengines.make_deoldify_fn, tengines.make_ddcolor_fn
+    monkeypatch.setattr(tengines, "make_deoldify_fn",
+                        lambda model=0, render_factor=24, **kw: t_do(model, 4, **kw))
+    monkeypatch.setattr(tengines, "make_ddcolor_fn",
+                        lambda model=1, render_factor=24, **kw: t_dd(model, 4, **kw))
+    monkeypatch.setattr(tex, "smart_resize_shape", lambda width, height, speed="medium": (40, 64))
+    frames = _gray_clip()
+    # two intra-op threads: under parallel test workers a full pool waits
+    # on its slowest thread at each of Deep-Exemplar's many small ops
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        for kw in (dict(EnableDeepEx=True, DeepExModel=1), dict(FrameInterp=1),
+                   dict(FrameInterp=4)):
+            out = havc_tpu_torch.HAVC_main(havc_tpu_torch.Clip(frames=frames.copy()),
+                                           batch_size=4, device="cpu", **kw)
+            assert isinstance(out.frames, np.ndarray) and out.frames.shape == frames.shape, kw
+            assert np.isfinite(out.frames).all() and 0 <= out.frames.min() <= out.frames.max() <= 1
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_port_imports_neither_jax_nor_havc_tpu():
@@ -217,6 +241,8 @@ def test_port_imports_neither_jax_nor_havc_tpu():
         "assert not bad, bad\n"
         "new = ['havc_tpu_torch.ops.' + m for m in ('equalize', 'retinex', 'lut3d', 'tiles')]\n"
         "new += ['havc_tpu_torch.models.zhang', 'havc_tpu_torch.exemplar.allrefs']\n"
+        "new += ['havc_tpu_torch.models.deepex', 'havc_tpu_torch.models.remaster',\n"
+        "        'havc_tpu_torch.ops.fgs']\n"
         "missing = [n for n in new if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len([n for n in sys.modules if n.startswith('havc_tpu_torch')]))\n"

@@ -693,13 +693,24 @@ def test_streaming_signatures_match_jax(J, name):
     assert havc_tpu_torch.HAVC_main_streaming is tstream.HAVC_main_streaming
 
 
-def test_unported_streaming_options_raise(tmp_path):
+def test_unported_streaming_options_raise(tmp_path, monkeypatch):
+    """Every ``ex_model`` of the restore stream is ported: DeepEx (1),
+    DeepRemaster (2) and the hybrid (3) stream a tiny ``.y4m`` (the
+    registry's seeded engines at a 32x32 work size; their parity with the
+    JAX package is tests/test_torch_streaming_deepex.py's); an unknown
+    model is refused."""
+    from havc_tpu_torch import exemplar as tex
+
+    monkeypatch.setattr(tex, "smart_resize_shape", lambda width, height, speed="medium": (32, 32))
     src = tmp_path / "in.y4m"
     _write_y4m(src, _gray_frames(t=2, h=8, w=8))
     for ex in (1, 2, 3):
-        with pytest.raises(NotImplementedError, match="DeepEx and DeepRemaster"):
-            tstream.HAVC_restore_video_streaming(str(src), str(src), "x.mp4", ex_model=ex,
-                                                 device="cpu")
+        assert tstream.HAVC_restore_video_streaming(
+            str(src), str(src), "x.mp4", ex_model=ex, work_size=(32, 32), sink="null",
+            engine_config="micro", device="cpu") == 2, ex
+    with pytest.raises(ValueError, match="unsupported ex_model"):
+        tstream.HAVC_restore_video_streaming(str(src), str(src), "x.mp4", ex_model=4,
+                                             device="cpu")
 
 
 def test_streaming_defaults_to_cuda(tmp_path):
