@@ -112,6 +112,42 @@ JSON line; any failure exits non-zero:
     phase's 48-frame pair through Deep-Exemplar and DeepRemaster (the
     look-ahead cursor over the reference video): fps, host syncs, chunk 16
     against chunk 48 within 1 code.
+23. ``scene_detectors`` (after phase 22's engines): on the exemplar clip
+    as CUDA tensors, ``HAVC_SceneDetect`` (defaults: cuts [0, 8, 16]; with
+    ``sc_min_int=4`` and ``sc_tht_ssim`` 0.5, which confirms no cut, and
+    0.8, which confirms 8 and 16), ``HAVC_SceneDetectEdges``,
+    ``HAVC_SceneDetectMotion`` and ``HAVC_extract_reference_frames(
+    sc_algo=2)`` into a temporary directory: cuts, wall time of a second
+    call, host syncs of a third; the same detector on the CPU from numpy
+    gives the same flags, lumas and ratios within 1e-4, the same
+    confirmation decisions, and each candidate's SSIM and histogram scores
+    within 1e-4 (printed beside their thresholds);
+    ``StreamSceneDetector`` fed chunks of 5 gives the whole-clip flags.
+24. ``overlay_degrain``: ``HAVC_clip_overlay`` (mode overlay, a 540x960
+    overlay at x=100, y=50, a mask, opacity 0.7) and ``HAVC_degrain`` at
+    strengths 1 and 3 on the main path's clip: wall time, fps, peak
+    memory and kernel launches (none) of a timed call after a warm-up;
+    both CPU against card at 6x48x64 (1e-4).
+25. ``restore_format`` (right after phase 3, on its output):
+    ``io.write_video_y4m`` (BT.709 limited 4:2:0, Floyd-Steinberg in the
+    native library built with ``g++``): the device part and the host
+    dither timed apart, the file read back by ``Y4MReader`` equal to the
+    planes written, the round trip's PSNR, at most 1 code against the
+    same write from the CPU's float planes, which are within 1e-3 code of
+    the card's.
+26. ``legacy_paths``: ``ddeoldify_main(clip)`` at 1080p (the Fast
+    stabilizer: no post-chain launch), ``ddeoldify_stabilizer(clip,
+    dark=True, smooth=True)`` (one post-chain launch) and
+    ``HAVC_cmnet(clip, clip_ref)`` on the exemplar clip (the full
+    ColorMNet, 21 window-attention calls); at test size (after phase 7's
+    parity) ``HAVC_ddeoldify`` and ``HAVC_cmnet`` bit-identical to the
+    calls they forward to.
+27. ``metrics``: ``metrics.compare_clip`` of the test-sized main path's
+    card output against its CPU output, and ``ciede2000`` on 10^6 seeded
+    LAB pairs (achromatic and opposite-hue ones among them) on the card
+    against the CPU within 1e-4 (random pairs within 1e-3 degrees of a
+    180-degree hue difference, where the mean hue's branch flips on
+    rounding, counted apart).
 Each of 14-21 prints the wall time of a second call, fps, peak device
 memory, the stage times of a third call (18-22 name ``deepex_vgg``,
 ``deepex_warp``, ``deepex_colorvid``, ``deepex_wls``,
@@ -485,7 +521,7 @@ def phase_main_path(ht, pc, wa, card: str):
         fail("main_path: the post-chain kernel was not launched")
     if n_do < 2e8 or n_dd < 2e8:
         fail(f"main_path: models not at full width ({n_do}, {n_dd} parameters)")
-    return by_kernel, frames, wall_s
+    return by_kernel, frames, wall_s, out
 
 
 # --- phase 4: where the device time goes ---------------------------------------------
@@ -1482,6 +1518,471 @@ def phase_clahe_parity() -> None:
         fail(f"parity_cpu_gpu clahe_1080: max abs err {err}, row 67 coordinate {row67}")
 
 
+# --- phases 23-27: the classic surface's leftovers --------------------------------------
+
+SCENE_STAT_TOL = 1e-4  # lumas, ratios and confirmation scores, card against CPU
+FLOAT_PLANE_TOL = 1e-3  # codes: the YUV planes before the dither, card against CPU
+CIEDE_PAIRS = 1_000_000
+
+
+# sc_tht_ssim of the confirmation runs (sc_min_int 4): at 0.5 it rejects every
+# candidate of the exemplar clip (their SSIM to the last reference is about 0.6), at
+# 0.8 it rejects the custom pass's candidate at frame 4 and accepts those at 8 and 16
+CONFIRM_SSIM = (0.5, 0.8)
+CUTS_EXPECTED = ("HAVC_SceneDetect", "HAVC_SceneDetect/ssim_0.8_min_int_4")
+
+
+def flags_row(flags) -> dict:
+    return dict(cuts=np.nonzero(flags.sc_prev)[0].tolist())
+
+
+def phase_scene_detectors(ht, pc, wa, card: str, tmp: str) -> dict:
+    """The scene detectors on the exemplar clip (24x1080p, cuts [0, 8,
+    16]) held as CUDA tensors: ``HAVC_SceneDetect`` with its defaults and
+    with ``sc_tht_ssim`` 0.5 and 0.8 at ``sc_min_int=4`` (the custom and
+    confirmation passes), ``HAVC_SceneDetectEdges``,
+    ``HAVC_SceneDetectMotion`` and ``HAVC_extract_reference_frames(sc_algo=2)``
+    into a temporary directory.  For each: the cuts, the wall time of a
+    second call, the host syncs of a third; the same detector on the CPU
+    from numpy must give the same flags, its lumas and ratios within 1e-4.
+    The confirmation's decisions and scores are held apart
+    (``confirmation_rows``).  ``StreamSceneDetector`` fed the clip in
+    chunks of 5 must give the whole-clip flags.  The defaults and the 0.8
+    confirmation must find the clip's cuts; at 0.5 the confirmation drops
+    them (its smooth scenes are alike in structure).  Returns the kernels'
+    launches by path, which must be none: the detectors are plain tensor
+    code."""
+    from havc_tpu_torch.scene import StreamSceneDetector, edges, motion, scene_detect
+
+    host = scene_clip_1080p()
+    frames = torch.from_numpy(host).cuda()
+    runs = {
+        "HAVC_SceneDetect": (lambda: ht.HAVC_SceneDetect(ht.Clip(frames=frames)).sc,
+                             lambda: scene_detect(host, device="cpu")),
+    }
+    for tht in CONFIRM_SSIM:
+        runs[f"HAVC_SceneDetect/ssim_{tht}_min_int_4"] = (
+            lambda tht=tht: ht.HAVC_SceneDetect(ht.Clip(frames=frames), sc_tht_ssim=tht,
+                                                sc_min_int=4).sc,
+            lambda tht=tht: scene_detect(host, sc_tht_filter=tht, min_length=4, device="cpu"))
+    runs.update({
+        "HAVC_SceneDetectEdges": (
+            lambda: ht.HAVC_SceneDetectEdges(ht.Clip(frames=frames)).sc,
+            lambda: edges.scene_detect_edges(host, threshold=0.035, sc_diff_offset=2,
+                                             sc_min_int=20, sc_mult_tht=15, tht_black=0.10,
+                                             sc_tht_ssim=0.80, device="cpu")),
+        "HAVC_SceneDetectMotion": (lambda: ht.HAVC_SceneDetectMotion(ht.Clip(frames=frames)).sc,
+                                   lambda: motion.scene_detect_motion(host, device="cpu")),
+    })
+    by_path = {}
+    for name, (run, run_cpu) in runs.items():
+        run()
+        zero_launches(pc, wa)
+        flags, wall_s = timed(run)
+        by_path[name] = read_launches(pc, wa)
+        _, syncs, sites = count_syncs(run)
+        cpu_flags, cpu_s = timed(run_cpu)
+        luma_err = float(np.abs(flags.luma - cpu_flags.luma).max())
+        ratio_err = float(np.abs(flags.ratio - cpu_flags.ratio).max())
+        same = np.array_equal(flags.sc_prev, cpu_flags.sc_prev)
+        emit(dict(phase="scene_detectors", card=card, path=name, clip=list(frames.shape),
+                  cuts=flags_row(flags)["cuts"], cpu_cuts=flags_row(cpu_flags)["cuts"],
+                  wall_s=wall_s, fps=frames.shape[0] / wall_s, host_syncs=syncs,
+                  sync_sites=sites, cpu_wall_s=cpu_s, luma_max_abs_err=luma_err,
+                  ratio_max_abs_err=ratio_err, tol=SCENE_STAT_TOL))
+        if not same:
+            fail(f"scene_detectors {name}: card cuts {flags_row(flags)['cuts']} != CPU cuts "
+                 f"{flags_row(cpu_flags)['cuts']}")
+        if not (luma_err <= SCENE_STAT_TOL and ratio_err <= SCENE_STAT_TOL):
+            fail(f"scene_detectors {name}: statistics differ from the CPU's ({luma_err}, "
+                 f"{ratio_err})")
+        if name in CUTS_EXPECTED and flags_row(flags)["cuts"] != EX_CUTS:
+            fail(f"scene_detectors {name}: cuts {flags_row(flags)['cuts']} != {EX_CUTS}")
+        if any(by_path[name].values()):
+            fail(f"scene_detectors {name}: kernel launches {by_path[name]} (expected none)")
+    for tht in CONFIRM_SSIM:
+        confirmation_rows(frames, host, tht, card)
+
+    # the reference export with the Xvid keyframe vote
+    def extract():
+        return ht.HAVC_extract_reference_frames(ht.Clip(frames=frames), sc_framedir=f"{tmp}/refs",
+                                                sc_algo=2, ref_ext="png")
+
+    extract()
+    zero_launches(pc, wa)
+    written, wall_s = timed(extract)
+    by_path["HAVC_extract_reference_frames/sc_algo2"] = read_launches(pc, wa)
+    _, syncs, sites = count_syncs(extract)
+    gpu_x = motion.scene_detect_xvid(frames)
+    cpu_x = motion.scene_detect_xvid(host, device="cpu")
+    x_err = max(float(np.abs(gpu_x.luma - cpu_x.luma).max()),
+                float(np.abs(gpu_x.ratio - cpu_x.ratio).max()))
+    emit(dict(phase="scene_detectors", card=card, path="HAVC_extract_reference_frames/sc_algo2",
+              written=[os.path.basename(p) for p in written], cuts=flags_row(gpu_x)["cuts"],
+              cpu_cuts=flags_row(cpu_x)["cuts"], wall_s=wall_s, host_syncs=syncs,
+              sync_sites=sites, stat_max_abs_err=x_err, tol=SCENE_STAT_TOL))
+    want_files = [f"ref_{n:06d}.png" for n in flags_row(gpu_x)["cuts"]]
+    if [os.path.basename(p) for p in written] != want_files:
+        fail(f"scene_detectors extract: wrote {written}, expected {want_files}")
+    if any(by_path["HAVC_extract_reference_frames/sc_algo2"].values()):
+        fail(f"scene_detectors extract: kernel launches "
+             f"{by_path['HAVC_extract_reference_frames/sc_algo2']} (expected none)")
+    if not np.array_equal(gpu_x.sc_prev, cpu_x.sc_prev) or not x_err <= SCENE_STAT_TOL:
+        fail(f"scene_detectors extract: card and CPU differ ({flags_row(gpu_x)}, "
+             f"{flags_row(cpu_x)}, {x_err})")
+
+    # the streaming detector, fed in chunks of 5, against the whole clip
+    for name, kw in [("defaults", {})] + [(f"ssim_{tht}_min_int_4",
+                                           dict(sc_tht_filter=tht, min_length=4))
+                                          for tht in CONFIRM_SSIM]:
+        stream = StreamSceneDetector(**kw)
+
+        def feed():
+            return np.concatenate([stream.feed(frames[s:s + 5])
+                                   for s in range(0, frames.shape[0], 5)])
+
+        got, wall_s = timed(feed)
+        want = scene_detect(frames, **kw).sc_prev
+        emit(dict(phase="scene_detectors", card=card, path=f"StreamSceneDetector/{name}",
+                  chunk=5, cuts=np.nonzero(got)[0].tolist(), wall_s=wall_s,
+                  tail_on_card=bool(stream._tail.is_cuda)))
+        if not np.array_equal(got, want) or not stream._tail.is_cuda:
+            fail(f"scene_detectors StreamSceneDetector {name}: {np.nonzero(got)[0].tolist()} != "
+                 f"{np.nonzero(want)[0].tolist()}")
+    return by_path
+
+
+def confirmation_rows(frames: torch.Tensor, host: np.ndarray, tht_ssim: float,
+                      card: str) -> None:
+    """The confirmation pass (``sc_tht_ssim``, ``sc_min_int=4``) on the card
+    and on the CPU: its decisions must be equal, and each candidate's SSIM
+    and histogram scores against the last accepted reference, unrounded
+    and computed from each side's gray maps, within 1e-4.  Each row shows
+    the scores' distances from their thresholds (SSIM from ``sc_tht_ssim``,
+    histogram from ``DEF_HIST_SCORE_HIGH``)."""
+    from havc_tpu_torch.scene import detect as d
+
+    records = {}
+    for side, x, dev in (("card", frames, None), ("cpu", host, "cpu")):
+        det = d.SceneDetector(sc_tht_filter=tht_ssim, min_length=4, debug=True, device=dev)
+        det.detect(x)
+        records[side] = det.debug_records
+    maps = {"card": d.frame_stats(frames), "cpu": d.frame_stats(host, device="cpu")}
+    key = ("state", "frame", "prev", "reason")
+    decisions = {side: [tuple(r[k] for k in key) for r in recs]
+                 for side, recs in records.items()}
+    rows, worst = [], 0.0
+    for r in records["card"]:
+        n, prev = r["frame"], r["prev"]
+        if prev < 0:
+            continue
+        score = {}
+        for side, (grays, _, _, hists) in maps.items():
+            score[side] = (d._ssim_uniform(grays[n], grays[prev]),
+                           1.0 - d._hellinger(hists[prev], hists[n]))
+        err = max(abs(a - b) for a, b in zip(score["card"], score["cpu"]))
+        worst = max(worst, err)
+        rows.append(dict(frame=n, prev=prev, state=r["state"], reason=r["reason"],
+                         ssim=score["card"][0], ssim_cpu=score["cpu"][0],
+                         ssim_minus_threshold=score["card"][0] - tht_ssim,
+                         hist=score["card"][1], hist_cpu=score["cpu"][1],
+                         hist_minus_threshold=score["card"][1] - d.DEF_HIST_SCORE_HIGH))
+    accepted = [r["frame"] for r in rows if r["state"] == "New"]
+    emit(dict(phase="scene_detectors", card=card, path=f"confirmation/ssim_{tht_ssim}_min_int_4",
+              candidates=rows, accepted=accepted, score_max_abs_err=worst, tol=SCENE_STAT_TOL))
+    if decisions["card"] != decisions["cpu"]:
+        fail(f"scene_detectors confirmation {tht_ssim}: card decisions {decisions['card']} != "
+             f"CPU decisions {decisions['cpu']}")
+    if not rows or not worst <= SCENE_STAT_TOL:
+        fail(f"scene_detectors confirmation {tht_ssim}: {len(rows)} candidates scored, scores "
+             f"{worst} apart (at most {SCENE_STAT_TOL})")
+
+
+OVERLAY_KW = dict(x=100, y=50, opacity=0.7, mode="overlay")
+
+
+def peak_run(run, pc, wa):
+    """(result, seconds, peak device memory, kernel launches) of a call
+    after a warm-up; the launch counts are set to 0 just before it."""
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(pc, wa)
+    out, wall_s = timed(run)
+    return out, wall_s, torch.cuda.max_memory_allocated(), read_launches(pc, wa)
+
+
+def phase_overlay_degrain(ht, pc, wa, card: str) -> dict:
+    """``HAVC_clip_overlay`` (mode overlay, a 540x960 colored overlay at
+    x=100, y=50 with a mask, opacity 0.7) and ``HAVC_degrain`` at strengths
+    1 and 3 (search windows of 9 and 49 offsets) on the main path's
+    24x1080p clip: wall time, fps, peak memory and kernel launches of a
+    second call (none: the paths are plain tensor code); then
+    both on the CPU and on the card at test size (6x48x64) within 1e-4."""
+    base = gray_clip_1080p()
+    over = tinted(base[:, 200:740, 300:1260].contiguous(), 8)
+    mask = torch.linspace(0.0, 1.0, 960, device="cuda").expand(24, 540, 960)[..., None]
+    mask = mask.expand(24, 540, 960, 3).contiguous()
+    runs = {
+        "HAVC_clip_overlay": lambda: ht.HAVC_clip_overlay(
+            ht.Clip(frames=base), ht.Clip(frames=over), mask=ht.Clip(frames=mask),
+            **OVERLAY_KW),
+        "HAVC_degrain/1": lambda: ht.HAVC_degrain(ht.Clip(frames=base), 1),
+        "HAVC_degrain/3": lambda: ht.HAVC_degrain(ht.Clip(frames=base), 3),
+    }
+    by_path = {}
+    for name, run in runs.items():
+        out, wall_s, peak, by_path[name] = peak_run(run, pc, wa)
+        f = out.frames
+        finite = bool(torch.isfinite(f).all().item())
+        lo, hi = f.min().item(), f.max().item()
+        changed = float((f - base).abs().mean())
+        emit(dict(phase="overlay_degrain", card=card, path=name, clip=list(f.shape),
+                  wall_s=wall_s, fps=f.shape[0] / wall_s, max_memory_allocated=peak,
+                  mean_abs_change=changed, out_min=lo, out_max=hi))
+        if tuple(f.shape) != tuple(base.shape) or not finite or lo < 0.0 or hi > 1.0:
+            fail(f"overlay_degrain {name}: output {tuple(f.shape)} finite={finite} in "
+                 f"[{lo}, {hi}]")
+        if not changed > 0.0:
+            fail(f"overlay_degrain {name}: the output equals the input")
+        if any(by_path[name].values()):
+            fail(f"overlay_degrain {name}: kernel launches {by_path[name]} on a path of plain "
+                 f"tensor code (expected none)")
+    small = np.random.default_rng(9).random((6, 48, 64, 3), dtype=np.float32)
+    small_over, small_mask = small[:, 5:25, 10:40] * 0.8, small[:, 10:30, 20:50]
+    cases = {
+        "overlay": lambda dev: ht.HAVC_clip_overlay(
+            ht.Clip(frames=small.copy()), ht.Clip(frames=small_over.copy()),
+            mask=ht.Clip(frames=small_mask.copy()), x=-4, y=30, opacity=0.7, mode="overlay",
+            mask_first_plane=False, device=dev),
+        "degrain_3": lambda dev: ht.HAVC_degrain(ht.Clip(frames=small.copy()), 3, device=dev),
+    }
+    for name, run in cases.items():
+        err = float(np.abs(run("cpu").frames - run(None).frames).max())
+        emit(dict(phase="parity_cpu_gpu", path=f"overlay_degrain/{name}", clip=list(small.shape),
+                  max_abs_err=err, tol=PARITY_TOL))
+        if not err <= PARITY_TOL:
+            fail(f"parity_cpu_gpu overlay_degrain/{name}: max abs err {err} > {PARITY_TOL}")
+    return by_path
+
+
+def phase_restore_format(ht, out_frames: torch.Tensor, fps: float, card: str, tmp: str) -> None:
+    """``io.write_video_y4m`` of the main path's 24x1080p output (BT.709,
+    limited range, 4:2:0, Floyd-Steinberg): the device part (matrix,
+    range, subsample, one copy to the host) and the host dither timed
+    apart, then the whole write; read back with ``Y4MReader``, the planes
+    equal what was written, the round trip's PSNR, and the largest code
+    gap against the same write from the CPU's float planes (at most 1
+    code: error diffusion passes an error of at most half a code on; the
+    float planes before the dither within 1e-3 code)."""
+    from havc_tpu_torch.io import Y4MReader, formats, native
+    from havc_tpu_torch.io.video import write_video_y4m
+
+    t0 = time.perf_counter()
+    native.load_native()
+    build_s = time.perf_counter() - t0
+    args = ("709", False, 8, "420")
+    formats._code_planes(out_frames, *args)
+    planes, device_s = timed(lambda: formats._code_planes(out_frames, *args))
+    t0 = time.perf_counter()
+    codes = formats._quantize(planes, 8, False, "error_diffusion")
+    dither_s = time.perf_counter() - t0
+    path = f"{tmp}/main_out.y4m"
+    clip = ht.Clip(frames=out_frames, fps=fps)
+    _, write_s = timed(lambda: write_video_y4m(clip, path))
+    _, syncs, _ = count_syncs(lambda: formats._code_planes(out_frames, *args))
+    with Y4MReader(path) as reader:
+        back = reader.read_planes(out_frames.shape[0] + 1)
+        geometry = (reader.width, reader.height, reader.fps)
+    same = all(np.array_equal(a, b) for a, b in zip(back, codes))
+    rgb = formats.yuv420p8_to_rgb(*back)
+    mse = float(((rgb - out_frames) ** 2).mean())
+    psnr = 10.0 * np.log10(1.0 / mse)
+    host = out_frames.cpu().numpy()
+    cpu_planes, cpu_s = timed(lambda: formats._code_planes(host, *args, device="cpu"))
+    plane_err = max(float(np.abs(a - b).max()) for a, b in zip(planes, cpu_planes))
+    cpu_codes = formats._quantize(cpu_planes, 8, False, "error_diffusion")
+    gaps = [int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+            for a, b in zip(codes, cpu_codes)]
+    moved = [float(np.mean(a != b)) for a, b in zip(codes, cpu_codes)]
+    emit(dict(phase="restore_format", card=card, clip=list(out_frames.shape),
+              native_build_s=build_s, device_part_s=device_s, host_dither_s=dither_s,
+              write_video_y4m_s=write_s, bytes=os.path.getsize(path), device_part_host_syncs=syncs,
+              read_back_equal=same, geometry=list(geometry), psnr_round_trip_db=psnr,
+              cpu_device_part_s=cpu_s, float_plane_max_abs_err_codes=plane_err,
+              max_code_gap_vs_cpu=gaps, share_codes_moved_vs_cpu=moved))
+    if not same or back[0].shape != tuple(out_frames.shape[:3]):
+        fail("restore_format: the .y4m read back differs from the planes written")
+    if max(gaps) > 1:
+        fail(f"restore_format: codes {gaps} apart from the CPU's (at most 1)")
+    if not psnr > 30.0:
+        fail(f"restore_format: round-trip PSNR {psnr} dB")
+    if not plane_err <= FLOAT_PLANE_TOL:
+        fail(f"restore_format: float planes {plane_err} codes apart from the CPU's "
+             f"(at most {FLOAT_PLANE_TOL})")
+
+
+def hue_branch_pairs(lab1: torch.Tensor, lab2: torch.Tensor, within: float = 1e-3):
+    """Pairs whose hue difference lies within ``within`` degrees of 180
+    (float64): there CIEDE2000's mean hue takes one branch or the other
+    (180 degrees apart) on rounding alone."""
+    a1, b1 = lab1[:, 1].double(), lab1[:, 2].double()
+    a2, b2 = lab2[:, 1].double(), lab2[:, 2].double()
+    cbar = 0.5 * (torch.hypot(a1, b1) + torch.hypot(a2, b2))
+    g = 0.5 * (1.0 - torch.sqrt(cbar**7 / (cbar**7 + 25.0**7)))
+    h1 = torch.rad2deg(torch.atan2(b1, (1 + g) * a1)) % 360.0
+    h2 = torch.rad2deg(torch.atan2(b2, (1 + g) * a2)) % 360.0
+    return ((h1 - h2).abs() - 180.0).abs() < within
+
+
+def phase_metrics(ht, main_cpu: np.ndarray, main_gpu: torch.Tensor) -> None:
+    """``metrics.compare_clip`` of the test-sized main path's card output
+    against its CPU output (on the card), and ``ciede2000`` on 10^6 seeded
+    LAB pairs on the card against the CPU within 1e-4: LAB of seeded RGB
+    pairs (near and far), achromatic pairs and axis-aligned opposite hues
+    (exactly 180 degrees apart).  Pairs of random hues within 1e-3 degrees
+    of 180 apart, where the formula's mean hue flips branch on rounding,
+    are counted and their error shown apart."""
+    from havc_tpu_torch import metrics
+    from havc_tpu_torch.ops.colorspace import ciede2000, rgb_to_lab
+
+    stats, wall_s = timed(lambda: metrics.compare_clip(main_gpu, main_cpu))
+    gen = torch.Generator().manual_seed(11)
+    c1 = torch.rand((CIEDE_PAIRS, 3), generator=gen)
+    c2 = (c1 + 0.1 * torch.randn((CIEDE_PAIRS, 3), generator=gen)).clamp(0, 1)
+    c2[: CIEDE_PAIRS // 2] = torch.rand((CIEDE_PAIRS // 2, 3), generator=gen)
+    lab1, lab2 = rgb_to_lab(c1), rgb_to_lab(c2)
+    lab1[:1000, 1:] = 0.0  # achromatic against colored
+    lab2[1000:2000, 1:] = 0.0  # both achromatic
+    lab1[1000:2000, 1:] = 0.0
+    lab1[2000:3000, 2] = 0.0  # hues 0 and 180 degrees
+    lab2[2000:3000, 1:] = torch.stack([-lab1[2000:3000, 1], lab1[2000:3000, 2]], dim=-1)
+    lab1[3000:4000, 1] = 0.0  # hues 90 and 270 degrees (atan2 -90)
+    lab2[3000:4000, 1:] = torch.stack([lab1[3000:4000, 1], -lab1[3000:4000, 2]], dim=-1)
+    want = ciede2000(lab1, lab2)
+    g1, g2 = lab1.cuda(), lab2.cuda()
+    got = ciede2000(g1, g2).cpu()
+    d = (got - want).abs()
+    branch = hue_branch_pairs(lab1, lab2)
+    branch[:4000] = False  # the axis-aligned pairs: atan2 is exact there
+    err = float(d[~branch].max())
+    branch_err = float(d[branch].max()) if bool(branch.any()) else 0.0
+    special_err = float(d[:4000].max())
+    ms = cuda_ms(lambda: ciede2000(g1, g2), reps=5, inner=5)
+    emit(dict(phase="metrics", path="main_path parity size (card vs CPU)",
+              compare_clip=stats, compare_clip_s=wall_s, ciede2000_pairs=CIEDE_PAIRS,
+              ciede2000_max_abs_err=err, ciede2000_special_pairs_max_abs_err=special_err,
+              ciede2000_hue_branch_pairs=int(branch.sum()),
+              ciede2000_hue_branch_max_abs_err=branch_err, ciede2000_max=float(want.max()),
+              ciede2000_ms=ms, tol=PARITY_TOL))
+    if not err <= PARITY_TOL:
+        fail(f"metrics: ciede2000 card vs CPU {err} > {PARITY_TOL}")
+    if not (np.isfinite(stats["dE2000_mean"]) and stats["dE2000_mean"] < 0.1):
+        fail(f"metrics: the main path's CPU and card outputs differ by dE2000 {stats}")
+
+
+def phase_legacy_paths(ht, pc, wa, card: str) -> dict:
+    """The legacy wrappers at 1080p: ``ddeoldify_main(clip)`` on the main
+    path's clip (Fast, Stable, Violet/Red: the Fast presets' stabilizer
+    runs the colormap only, so no post-chain launch, as in the JAX
+    package), ``ddeoldify_stabilizer(clip, dark=True, smooth=True)`` on
+    that clip tinted (the fused post chain: one launch) and
+    ``HAVC_cmnet(clip, clip_ref)`` on the exemplar clip with its tinted
+    references at the cuts (the full ColorMNet: window attention on the 21
+    other frames).  Their launches go into ``launches_by_path``."""
+    frames = gray_clip_1080p()
+    colored = tinted(frames, 8)
+    runs = {
+        "ddeoldify_main": (lambda: ht.ddeoldify_main(ht.Clip(frames=frames)), 0),
+        "ddeoldify_stabilizer": (lambda: ht.ddeoldify_stabilizer(
+            ht.Clip(frames=colored), dark=True, smooth=True), 1),
+    }
+    by_path = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for name, (run, want) in runs.items():
+            _, first_s = timed(run)
+            zero_launches(pc, wa)
+            out, wall_s = timed(run)
+            by_path[name] = read_launches(pc, wa)
+            f = out.frames
+            finite = bool(torch.isfinite(f).all().item())
+            emit(dict(phase="legacy_paths", card=card, path=name, clip=list(f.shape),
+                      first_call_s=first_s, wall_s=wall_s, fps=f.shape[0] / wall_s,
+                      launches=by_path[name],
+                      mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item()))
+            if by_path[name]["post_chain"] != want or not finite:
+                fail(f"legacy_paths {name}: post chain {by_path[name]['post_chain']} launches "
+                     f"(expected {want}), finite={finite}")
+        del out, f, colored
+        ex = torch.from_numpy(scene_clip_1080p()).cuda()
+        ref = ht.Clip(frames=tinted(ex, 8)).with_sc(
+            ht.SceneFlags.from_frame_list(ex.shape[0], EX_CUTS, False))
+
+        def run_cmnet():
+            return ht.HAVC_cmnet(ht.Clip(frames=ex), ref, engine_config="full")
+
+        row = drive_exemplar_path(ht, pc, wa, card, "legacy_paths/HAVC_cmnet", run_cmnet,
+                                  ex.shape[0])
+    want_calls = ex.shape[0] - len(EX_CUTS)
+    if row["window_attn_calls"] != want_calls:
+        fail(f"legacy_paths HAVC_cmnet: window attention {row['window_attn_calls']} calls, "
+             f"expected {want_calls}")
+    by_path["HAVC_cmnet"] = row["launches"]
+    return by_path
+
+
+def phase_leftover_parity(ht) -> None:
+    """At test size with the tiny engines of ``parity_cpu_gpu``:
+    ``HAVC_ddeoldify`` and ``HAVC_cmnet`` on the card bit-identical to
+    ``HAVC_colorizer`` and ``HAVC_deepex(ex_model=0)``, which they forward
+    to; then the main path on the CPU and on the card for ``metrics``."""
+    from havc_tpu_torch import api, engines, exemplar
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
+    saved = dict(engines.registry._cache)
+    saved_ex = dict(exemplar._ENGINE_CACHE)
+    real_do, real_dd = engines.make_deoldify_fn, engines.make_ddcolor_fn
+    engines.registry._cache.update(tiny_engines([cpu, gpu]))
+    exemplar._ENGINE_CACHE.clear()
+    engines.make_deoldify_fn = lambda model=0, render_factor=24, **kw: real_do(model, 4, **kw)
+    engines.make_ddcolor_fn = lambda model=1, render_factor=24, **kw: real_dd(model, 4, **kw)
+    try:
+        two = two_scene_clip()
+        gray = torch.from_numpy(two).cuda()
+        ref = ht.Clip(frames=tinted(gray, 3)).with_sc(ht.SceneFlags.from_frame_list(6, [0, 3],
+                                                                                    False))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            pairs = {
+                "HAVC_ddeoldify": (
+                    ht.HAVC_ddeoldify(ht.Clip(frames=gray), sc_threshold=0.1, batch_size=4),
+                    api.HAVC_colorizer(ht.Clip(frames=gray), sc_threshold=0.1, batch_size=4,
+                                       cmc_p=[0.2] + list(api.DEF_CMC_p[1:]),
+                                       lmm_p=(0.2, 0.8, 1.0), alm_p=(0.8, 1.0, 0.15))),
+                "HAVC_cmnet": (ht.HAVC_cmnet(ht.Clip(frames=gray), ref, batch_size=4),
+                               ht.HAVC_deepex(ht.Clip(frames=gray), ref, ex_model=0,
+                                              batch_size=4)),
+            }
+        for name, (got, want) in pairs.items():
+            equal = bool(torch.equal(got.frames, want.frames))
+            emit(dict(phase="legacy_paths", path=f"{name} (test size)", clip=list(gray.shape),
+                      bit_identical_to_target=equal))
+            if not equal:
+                fail(f"legacy_paths {name}: not bit-identical to the call it forwards to")
+        y = np.random.default_rng(7).random((6, 48, 64, 1), dtype=np.float32)
+        main = np.repeat(y, 3, axis=-1)
+        out_cpu = ht.HAVC_main(ht.Clip(frames=main.copy()), batch_size=4, device="cpu").frames
+        out_gpu = ht.HAVC_main(ht.Clip(frames=torch.from_numpy(main).cuda()),
+                               batch_size=4).frames
+    finally:
+        engines.registry._cache.clear()
+        engines.registry._cache.update(saved)
+        exemplar._ENGINE_CACHE.clear()
+        exemplar._ENGINE_CACHE.update(saved_ex)
+        engines.make_deoldify_fn, engines.make_ddcolor_fn = real_do, real_dd
+    phase_metrics(ht, out_cpu, out_gpu)
+
+
 # --- phases 8, 9: the streaming paths ---------------------------------------------------
 
 STREAM_T = 136  # frames of the streaming clip (about 0.42 GB of .y4m)
@@ -1917,7 +2418,10 @@ def main() -> None:
     by_path = {}  # path -> {kernel: launches in that path's measured run}
     # before any model is on the card, so its peak is the filter's own
     phase_bw_tune_memory(ht, smi)
-    by_path["main_path"], frames, wall_s = phase_main_path(ht, pc, wa, smi)
+    by_path["main_path"], frames, wall_s, main_out = phase_main_path(ht, pc, wa, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_restore_format(ht, main_out.frames, main_out.fps, smi, tmp)
+    del main_out
     phase_profile("main_path", lambda: ht.HAVC_main(ht.Clip(frames=frames)), wall_s, smi,
                   "post_chain", FILTER_KERNELS)
     del frames
@@ -1937,8 +2441,13 @@ def main() -> None:
     del run_ct
     by_path["frameinterp_path"], _, _ = phase_frameinterp_path(ht, pc, wa, smi)
     by_path.update(phase_engine_paths(ht, pc, wa, smi))
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path.update(phase_scene_detectors(ht, pc, wa, smi, tmp))
+    by_path.update(phase_overlay_degrain(ht, pc, wa, smi))
+    by_path.update(phase_legacy_paths(ht, pc, wa, smi))
     phase_parity(ht)
     phase_engine_parity(ht)
+    phase_leftover_parity(ht)
     has_cv2 = importlib.util.find_spec("cv2") is not None
     with tempfile.TemporaryDirectory() as tmp:
         if not has_cv2:

@@ -28,3 +28,4 @@ from .clip import Clip, SceneFlags  # noqa: F401
 from .exemplar import HAVC_cmnet2, HAVC_deepex  # noqa: F401
 from .scene import scene_detect  # noqa: F401
 from .streaming import HAVC_main_streaming  # noqa: F401
+from .utils import HAVC_LogMessage, HAVCError, MessageType  # noqa: F401

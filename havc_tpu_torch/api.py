@@ -20,14 +20,22 @@ Port of ``havc_tpu.api``:
   ``HAVC_tweak``, ``HAVC_TimeCube``, ``HAVC_recover_clip_color``,
   ``HAVC_ColorAdjust`` (with ReColor), ``HAVC_main_restore``, the tiles
   (``HAVC_clip_slice``, ``HAVC_clip_reconstruct``), ``HAVC_read_video``,
-  ``HAVC_DeepRemaster`` and the parameter setters.
+  ``HAVC_DeepRemaster`` and the parameter setters;
+* the scene detectors (``HAVC_SceneDetect``, ``HAVC_SceneDetectEdges``,
+  ``HAVC_SceneDetectMotion``), the reference-frame export
+  (``HAVC_extract_reference_frames`` with ``sc_algo`` 0-3,
+  ``HAVC_export_reference_frames``, ``HAVC_export_list_frames``), the
+  overlay compositor (``HAVC_clip_overlay``), the NLM degrain
+  (``HAVC_degrain``) and the legacy wrappers (``HAVC_ddeoldify``,
+  ``ddeoldify``, ``ddeoldify_main``, ``ddeoldify_stabilizer``,
+  ``HAVC_cmnet``, ``vs_frame_interpolation``, ``disable_warnings``).
 
 Parameter names, packs and defaults are the JAX package's.
 
-Every entry point takes ``device``: ``None`` means CUDA and raises when
-there is none; ``device="cpu"`` runs on the CPU.  A clip of numpy frames
+Every entry point that computes takes ``device``: ``None`` means CUDA and
+raises when there is none; ``device="cpu"`` runs on the CPU.  A clip of numpy frames
 comes back with numpy frames; a clip of tensors comes back with tensors on
-the device it ran on.  What is not ported yet raises
+the device it ran on.  What is not ported yet (the multi-device paths) raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -80,6 +88,21 @@ __all__ = [
     "HAVC_set_tweak_params",
     "HAVC_set_merge_params",
     "HAVC_set_debug_level",
+    "HAVC_SceneDetect",
+    "HAVC_SceneDetectEdges",
+    "HAVC_SceneDetectMotion",
+    "HAVC_extract_reference_frames",
+    "HAVC_export_reference_frames",
+    "HAVC_export_list_frames",
+    "HAVC_clip_overlay",
+    "HAVC_degrain",
+    "HAVC_ddeoldify",
+    "HAVC_cmnet",
+    "ddeoldify",
+    "ddeoldify_main",
+    "ddeoldify_stabilizer",
+    "vs_frame_interpolation",
+    "disable_warnings",
     "ClipTiles",
     "bw_tune_frames",
     "auto_levels_frames",
@@ -205,6 +228,7 @@ def HAVC_colorizer(
                 clip.frames, threshold=sc_threshold, frequency=sc_min_freq,
                 sc_tht_filter=sc_tht_ssim, min_length=sc_min_int, tht_white=sc_tht_white,
                 tht_black=sc_tht_black, tht_offset=sc_tht_offset, normalize=sc_normalize,
+                device=dev,
             )
         clip = clip.with_sc(flags)
         sc_idx = np.nonzero(flags.sc_prev.astype(bool))[0]
@@ -1643,6 +1667,264 @@ def HAVC_read_video(
 
 
 # --------------------------------------------------------------------------
+# scene detection and reference-frame export
+# --------------------------------------------------------------------------
+
+
+def HAVC_SceneDetect(
+    clip: Clip,
+    sc_threshold: float = 0.10,
+    sc_tht_offset: int = 1,
+    sc_tht_ssim: float = 0.0,
+    sc_min_int: int = 1,
+    sc_min_freq: int = 0,
+    sc_normalize: bool = False,
+    sc_tht_white: float = 0.70,
+    sc_tht_black: float = 0.10,
+    sc_debug: bool = False,
+    device=None,
+) -> Clip:
+    """The clip with its scene-change flags (``scene.detect``; the frames
+    are reduced on ``device`` and stay as they were).  ``sc_debug=True``
+    logs every New/Skip decision with its SSIM, histogram, luma and
+    reason."""
+    dev = resolve_device(device)
+    flags = scene_detect(
+        clip.frames, threshold=sc_threshold, frequency=sc_min_freq, sc_tht_filter=sc_tht_ssim,
+        min_length=sc_min_int, tht_white=sc_tht_white, tht_black=sc_tht_black,
+        tht_offset=sc_tht_offset, normalize=sc_normalize, debug=sc_debug, device=dev,
+    )
+    return clip.with_sc(flags)
+
+
+def HAVC_SceneDetectEdges(
+    clip: Clip,
+    sc_threshold: float = 0.035,
+    sc_tht_offset: int = 2,
+    sc_tht_ssim: float = 0.80,
+    sc_min_int: int = 20,
+    sc_mult_tht: int = 15,
+    sc_tht_white: float = 0.70,
+    sc_tht_black: float = 0.10,
+    sc_debug: bool = False,
+    device=None,
+) -> Clip:
+    """Edge-based scene detection (``scene.edges``): the draft edge mask,
+    the offset-frame difference (``sc_tht_offset`` is its offset), the
+    reasons' ladder, the luma gates and the SSIM confirmation.
+    ``sc_debug=True`` prints the cut indices."""
+    from .scene.edges import scene_detect_edges
+
+    flags = scene_detect_edges(
+        clip.frames, threshold=sc_threshold, frequency=0, sc_diff_offset=sc_tht_offset,
+        sc_min_int=sc_min_int, sc_mult_tht=sc_mult_tht, tht_white=sc_tht_white,
+        tht_black=sc_tht_black, sc_tht_ssim=sc_tht_ssim, device=resolve_device(device),
+    )
+    if sc_debug:
+        print("HAVC-SC-EDGES:", list(np.nonzero(flags.sc_prev)[0]))
+    return clip.with_sc(flags)
+
+
+def HAVC_SceneDetectMotion(
+    clip: Clip,
+    bad_sad: float = 0.08,
+    bad_ratio: float = 0.55,
+    sc_min_int: int = 1,
+    device=None,
+) -> Clip:
+    """Block-motion scene detection (``scene.motion``, the MVTools
+    SCDetection role)."""
+    from .scene.motion import scene_detect_motion
+
+    flags = scene_detect_motion(clip.frames, bad_sad=bad_sad, bad_ratio=bad_ratio,
+                                min_length=sc_min_int, device=resolve_device(device))
+    return clip.with_sc(flags)
+
+
+def HAVC_extract_reference_frames(
+    clip: Clip,
+    sc_threshold: float = 0.10,
+    sc_tht_offset: int = 1,
+    sc_tht_ssim: float = 0.0,
+    sc_min_int: int = 1,
+    sc_min_freq: int = 0,
+    sc_framedir: str = "./",
+    sc_sequence: bool = False,
+    sc_normalize: bool = False,
+    ref_offset: int = 0,
+    sc_tht_white: float = 0.70,
+    sc_tht_black: float = 0.10,
+    ref_ext: str = "jpg",
+    ref_jpg_quality: int = 95,
+    ref_override: bool = True,
+    sc_algo: int = 0,
+    sc_debug: bool = False,
+    device=None,
+) -> list:
+    """Detect the scene changes and write them as ``ref_nnnnnn`` images
+    into ``sc_framedir``; returns the written paths.  ``sc_algo``: 0 the
+    luma detector (with the SSIM filter), 1 the edge detector, 2 the Xvid
+    keyframe vote (``scene.motion.scene_detect_xvid``), 3 the block-motion
+    SCDetection, its thresholds derived as the reference's (thscd1 ~
+    ``sc_threshold`` * 2500, thscd2 ~ ``sc_tht_ssim`` * 300)."""
+    from .io.video import export_reference_frames
+
+    dev = resolve_device(device)
+    if sc_algo == 1:
+        clip = HAVC_SceneDetectEdges(
+            clip, sc_threshold=sc_threshold, sc_tht_ssim=sc_tht_ssim,
+            sc_tht_offset=sc_tht_offset, sc_min_int=sc_min_int,
+            sc_mult_tht=sc_min_freq if sc_min_freq > 0 else 15, sc_tht_white=sc_tht_white,
+            sc_tht_black=sc_tht_black, sc_debug=sc_debug, device=dev,
+        )
+    elif sc_algo == 2:
+        from .scene.motion import scene_detect_xvid
+
+        clip = clip.with_sc(scene_detect_xvid(clip.frames, min_length=sc_min_int, device=dev))
+    elif sc_algo == 3:
+        from .scene.motion import scene_detect_motion
+
+        clip = clip.with_sc(scene_detect_motion(
+            clip.frames,
+            bad_sad=min(sc_threshold * 2500, 1000) / 4096.0,
+            bad_ratio=min(sc_tht_ssim * 300, 300) / 300.0 * 0.6 + 0.2,
+            min_length=sc_min_int, device=dev,
+        ))
+    else:
+        clip = HAVC_SceneDetect(
+            clip, sc_threshold=sc_threshold, sc_tht_offset=sc_tht_offset,
+            sc_tht_ssim=sc_tht_ssim, sc_min_int=sc_min_int, sc_min_freq=sc_min_freq,
+            sc_normalize=sc_normalize, sc_tht_white=sc_tht_white, sc_tht_black=sc_tht_black,
+            sc_debug=sc_debug, device=dev,
+        )
+    return export_reference_frames(
+        clip, sc_framedir, ext=ref_ext, ref_offset=ref_offset, ref_jpg_quality=ref_jpg_quality,
+        ref_override=ref_override, sequence=sc_sequence,
+    )
+
+
+def HAVC_export_reference_frames(
+    clip: Clip,
+    sc_framedir: str = "./",
+    ref_offset: int = 0,
+    ref_ext: str = "jpg",
+    ref_jpg_quality: int = 95,
+    ref_override: bool = True,
+) -> list:
+    """Write the frames already flagged on the clip as ``ref_nnnnnn``
+    images; returns the written paths (nothing is computed: no device)."""
+    from .io.video import export_reference_frames
+
+    return export_reference_frames(
+        clip, sc_framedir, ext=ref_ext, ref_offset=ref_offset,
+        ref_jpg_quality=ref_jpg_quality, ref_override=ref_override,
+    )
+
+
+def HAVC_export_list_frames(
+    clip: Clip,
+    sc_framedir: str = "./",
+    ref_list: Optional[list] = None,
+    offset: int = 0,
+    ref_ext: str = "jpg",
+    ref_jpg_quality: int = 95,
+    ref_override: bool = True,
+    fast_extract: bool = True,
+    frame_list: Optional[list] = None,
+) -> list:
+    """Write an explicit list of frames as ``ref_nnnnnn`` images; a
+    one-element ``ref_list=[N]`` writes every N-th frame.  ``fast_extract``
+    is accepted and changes nothing (frames are random access here);
+    ``frame_list`` is a deprecated alias of ``ref_list``."""
+    from .io.video import export_reference_frames
+
+    del fast_extract
+    if ref_list is None:
+        ref_list = frame_list
+    if not ref_list:
+        return []
+    if len(ref_list) == 1:
+        ref_list = list(range(0, clip.num_frames, max(int(ref_list[0]), 1)))
+    return export_reference_frames(
+        clip, sc_framedir, ext=ref_ext, frame_list=ref_list, ref_offset=offset,
+        ref_jpg_quality=ref_jpg_quality, ref_override=ref_override,
+    )
+
+
+# --------------------------------------------------------------------------
+# overlay and degrain
+# --------------------------------------------------------------------------
+
+
+@torch.inference_mode()
+def HAVC_clip_overlay(
+    base: Clip,
+    overlay: Clip = None,
+    x: int = 0,
+    y: int = 0,
+    mask: Optional[Clip] = None,
+    opacity: float = 1.0,
+    mode: str = "normal",
+    planes=None,
+    mask_first_plane: bool = True,
+    overlay_clip: Optional[Clip] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Blend-mode compositor (``ops.overlay``): 9 modes, placement at
+    (x, y), an optional mask and the opacity.  ``planes`` selects the RGB
+    channels that are blended (the others keep the base);
+    ``mask_first_plane=False`` takes each mask channel for its own plane.
+    ``overlay_clip`` is a deprecated alias of ``overlay``."""
+    from .ops.overlay import overlay as op_overlay
+
+    if overlay is None:
+        overlay = overlay_clip
+    if overlay is None:
+        raise ValueError("HAVC_clip_overlay: overlay clip is required")
+    if planes is None:
+        plane_sel = (0, 1, 2)
+    elif isinstance(planes, int):
+        plane_sel = (planes,)
+    else:
+        plane_sel = tuple(planes)
+    dev = resolve_device(device)
+    b_clip, to_host = _on(base, dev)
+    b_all, o_all = b_clip.frames, overlay.to_device(dev).frames
+    per_plane_mask = mask is not None and not mask_first_plane
+    m_all = None
+    if mask is not None:
+        m_all = mask.to_device(dev).frames
+        if not per_plane_mask:
+            m_all = m_all[..., 0]
+    keep = None
+    if plane_sel != (0, 1, 2):
+        keep = torch.tensor([1.0 if c in plane_sel else 0.0 for c in range(3)], device=dev)
+
+    def compose(b, o, m):
+        if per_plane_mask:
+            out = torch.stack([op_overlay(b, o, x, y, m[..., c], opacity, mode)[..., c]
+                               for c in range(3)], dim=-1)
+        else:
+            out = op_overlay(b, o, x, y, m, opacity, mode)
+        return out if keep is None else out * keep + b * (1.0 - keep)
+
+    outs = [compose(b_all[s:s + batch_size], o_all[s:s + batch_size],
+                    None if m_all is None else m_all[s:s + batch_size])
+            for s in range(0, b_clip.num_frames, batch_size)]
+    out = b_clip.with_frames(torch.cat(outs, dim=0))
+    return out.to_host() if to_host else out
+
+
+def HAVC_degrain(clip: Clip, strength: int = 1, batch_size: int = 4, device=None) -> Clip:
+    """Non-local-means luma degrain (``ops.denoise``, the KNLMeansCL
+    role), strengths 1-3."""
+    from .ops.denoise import degrain
+
+    return _map(clip, lambda x: degrain(x, strength), batch_size, resolve_device(device))
+
+
+# --------------------------------------------------------------------------
 # global parameter setters
 # --------------------------------------------------------------------------
 
@@ -1693,3 +1975,164 @@ def HAVC_set_merge_params(method: int = 2, merge_params: Optional[list] = None,
             pack[:] = list(new)
             _GLOBAL_PARAMS[key] = list(new)
     return dict(_GLOBAL_PARAMS)
+
+
+# --------------------------------------------------------------------------
+# legacy wrappers
+# --------------------------------------------------------------------------
+
+
+def HAVC_ddeoldify(
+    clip: Clip,
+    method: int = 2,
+    mweight: float = 0.4,
+    deoldify_p=(0, 24, 1.0, 0.0),
+    ddcolor_p=(1, 24, 1.0, 0.0, True),
+    ddtweak: bool = False,
+    ddtweak_p=(DEF_TWEAK_p, "300:360|0.8,0.1"),
+    cmc_tresh: float = 0.2,
+    lmm_p=(0.2, 0.8, 1.0),
+    alm_p=(0.8, 1.0, 0.15),
+    cmb_sw: bool = False,
+    sc_threshold: float = 0.0,
+    sc_tht_offset: int = 1,
+    sc_min_freq: int = 0,
+    sc_tht_ssim: float = 0.0,
+    sc_normalize: bool = False,
+    sc_min_int: int = 1,
+    sc_tht_white: float = 0.70,
+    sc_tht_black: float = 0.10,
+    device_index: int = 0,
+    torch_dir: Optional[str] = None,
+    sc_debug: bool = False,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Deprecated: ``HAVC_colorizer`` with the scalar ``ddtweak`` as the
+    3-flag pack and ``cmc_tresh`` as the first CMC parameter."""
+    import warnings
+
+    warnings.warn("HAVC_ddeoldify() is deprecated; use HAVC_colorizer()", DeprecationWarning)
+    return HAVC_colorizer(
+        clip, method=method, mweight=mweight, deoldify_p=deoldify_p, ddcolor_p=ddcolor_p,
+        ddtweak=(bool(ddtweak), False, False), ddtweak_p=ddtweak_p,
+        cmc_p=[cmc_tresh] + list(DEF_CMC_p[1:]), lmm_p=lmm_p, alm_p=alm_p, crt_p=DEF_CRT_p,
+        cmb_sw=cmb_sw, sc_threshold=sc_threshold, sc_tht_offset=sc_tht_offset,
+        sc_min_freq=sc_min_freq, sc_tht_ssim=sc_tht_ssim, sc_normalize=sc_normalize,
+        sc_min_int=sc_min_int, sc_tht_white=sc_tht_white, sc_tht_black=sc_tht_black,
+        device_index=device_index, torch_dir=torch_dir, debug_level=2 if sc_debug else 0,
+        batch_size=batch_size, device=device,
+    )
+
+
+def ddeoldify(
+    clip: Clip,
+    method: int = 2,
+    mweight: float = 0.4,
+    deoldify_p=(0, 24, 1.0, 0.0),
+    ddcolor_p=(1, 24, 1.0, 0.0, True),
+    dotweak: bool = False,
+    dotweak_p=(0.0, 1.0, 1.0, False, 0.2, 0.5, 1.5, 0.5),
+    ddtweak: bool = False,
+    ddtweak_p=(DEF_TWEAK_p, "300:360|0.8,0.1"),
+    degrain_strength: int = 0,
+    cmc_tresh: float = 0.2,
+    lmm_p=(0.2, 0.8, 1.0),
+    alm_p=(0.8, 1.0, 0.15),
+    cmb_sw: bool = False,
+    device_index: int = 0,
+    torch_dir: Optional[str] = None,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Deprecated: ``HAVC_colorizer`` as ``HAVC_ddeoldify`` forwards it,
+    without scene detection; ``dotweak``, ``dotweak_p`` and
+    ``degrain_strength`` are accepted and dropped (as the reference does)."""
+    import warnings
+
+    warnings.warn("ddeoldify() is deprecated; use HAVC_colorizer()", DeprecationWarning)
+    del dotweak, dotweak_p, degrain_strength
+    return HAVC_colorizer(
+        clip, method=method, mweight=mweight, deoldify_p=deoldify_p, ddcolor_p=ddcolor_p,
+        ddtweak=(bool(ddtweak), False, False), ddtweak_p=ddtweak_p,
+        cmc_p=[cmc_tresh] + list(DEF_CMC_p[1:]), lmm_p=lmm_p, alm_p=alm_p, crt_p=DEF_CRT_p,
+        cmb_sw=cmb_sw, sc_threshold=0, sc_min_freq=0, device_index=device_index,
+        torch_dir=torch_dir, batch_size=batch_size, device=device,
+    )
+
+
+def ddeoldify_main(
+    clip: Clip,
+    Preset: str = "Fast",
+    VideoTune: str = "Stable",
+    ColorFix: str = "Violet/Red",
+    ColorTune: str = "Light",
+    ColorMap: str = "None",
+    degrain_strength: int = 0,
+    enable_fp16: bool = True,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Deprecated: ``HAVC_main`` with these settings; ``degrain_strength``
+    is accepted and dropped (as the reference does)."""
+    import warnings
+
+    warnings.warn("ddeoldify_main() is deprecated; use HAVC_main()", DeprecationWarning)
+    del degrain_strength
+    return HAVC_main(clip, Preset=Preset, VideoTune=VideoTune, ColorFix=ColorFix,
+                     ColorTune=ColorTune, ColorMap=ColorMap, enable_fp16=enable_fp16,
+                     batch_size=batch_size, device=device)
+
+
+def ddeoldify_stabilizer(
+    clip: Clip,
+    dark: bool = False,
+    dark_p=(0.2, 0.8),
+    smooth: bool = False,
+    smooth_p=(0.3, 0.7, 0.9, 0.0, "none"),
+    stab: bool = False,
+    stab_p=(5, "A", 1, 15, 0.2, 0.80),
+    colormap: str = "none",
+    render_factor: int = 24,
+    batch_size: int = 8,
+    device=None,
+) -> Clip:
+    """Deprecated: ``HAVC_stabilizer`` with these settings."""
+    import warnings
+
+    warnings.warn("ddeoldify_stabilizer() is deprecated; use HAVC_stabilizer()",
+                  DeprecationWarning)
+    return HAVC_stabilizer(clip, dark=dark, dark_p=dark_p, smooth=smooth, smooth_p=smooth_p,
+                           stab=stab, stab_p=stab_p, colormap=colormap,
+                           render_factor=render_factor, batch_size=batch_size, device=device)
+
+
+def vs_frame_interpolation(clip: Clip, clip_ref: Clip, frame_interp: int = 5,
+                           chroma_adjust: str = "none", process_id: int = 1,
+                           batch_size: int = 8, device=None) -> Clip:
+    """Colors between the references of ``clip_ref``: the public form of
+    the interpolator of ``HAVC_colorizer_fast`` and FrameInterp."""
+    return _frame_interpolation(clip, clip_ref, frame_interp, chroma_adjust, process_id,
+                                batch_size, device=device)
+
+
+def disable_warnings():
+    """Silence the noisy loggers of the libraries the port runs on (torch,
+    PIL, numpy, matplotlib) and the future, user and deprecation warnings."""
+    import logging
+    import warnings
+
+    for module in ("torch", "PIL", "numpy", "matplotlib"):
+        logging.getLogger(module).setLevel(logging.ERROR)
+    warnings.simplefilter(action="ignore", category=FutureWarning)
+    warnings.simplefilter(action="ignore", category=UserWarning)
+    warnings.simplefilter(action="ignore", category=DeprecationWarning)
+
+
+def HAVC_cmnet(clip: Clip, clip_ref: Optional[Clip] = None, device=None, **kwargs) -> Clip:
+    """The first ColorMNet front end: ``HAVC_deepex`` with ``ex_model=0``
+    unless the caller names another."""
+    from .exemplar import HAVC_deepex
+
+    kwargs.setdefault("ex_model", 0)
+    return HAVC_deepex(clip, clip_ref, device=device, **kwargs)

@@ -13,7 +13,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["Clip", "ClipInfo", "SceneFlags"]
+__all__ = ["Clip", "ClipInfo", "SceneFlags", "from_frames"]
 
 
 @dataclass
@@ -140,3 +140,24 @@ class Clip:
         outs = [fn(self.frames[s:s + batch_size])
                 for s in range(0, self.num_frames, batch_size)]
         return self.with_frames(torch.cat(outs, dim=0))
+
+
+def from_frames(frames, fps: float = 25.0, device=False) -> Clip:
+    """A Clip of uint8 (0..255) or float (0..1) frames, (T, H, W, 3) or
+    (H, W, 3).  ``device=False`` keeps numpy float32 frames; ``True`` (CUDA)
+    or a device name uploads them, uint8 as bytes divided by 255 on the
+    device."""
+    frames = np.asarray(frames)
+    if frames.ndim == 3:
+        frames = frames[None]
+    if device is False or device is None:
+        if frames.dtype == np.uint8:
+            frames = frames.astype(np.float32) / 255.0
+        return Clip(frames=frames.astype(np.float32), fps=fps)
+    from .utils.profiling import resolve_device
+    from .utils.transfer import u8_to_unit
+
+    dev = resolve_device(None if device is True else device)
+    if frames.dtype == np.uint8:
+        return Clip(frames=u8_to_unit(torch.from_numpy(frames).to(dev)), fps=fps)
+    return Clip(frames=torch.from_numpy(frames.astype(np.float32)).to(dev), fps=fps)

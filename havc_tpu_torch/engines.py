@@ -30,7 +30,7 @@ from .filters import constrained_tweak, recover_clip_luma
 from .ops import equalize
 from .ops.chroma import chroma_tweak
 from .ops.chroma import tweak as op_tweak
-from .utils.profiling import resolve_device
+from .utils.profiling import on_device, resolve_device
 
 __all__ = [
     "EngineRegistry",
@@ -39,7 +39,10 @@ __all__ = [
     "load_npz_params",
     "make_deoldify_fn",
     "make_ddcolor_fn",
+    "deoldify_frames",
+    "ddcolor_frames",
     "zhang_frames",
+    "colorize_gated",
     "DEF_STABLE_WEIGHT",
     "DEF_ARTISTIC_WEIGHT",
     "DEF_TWEAK_p",
@@ -201,6 +204,19 @@ def make_deoldify_fn(model: int = 0, render_factor: int = 24, device=None) -> Ca
     return fn
 
 
+def _residency(frames, out: torch.Tensor):
+    """``out`` as numpy when ``frames`` was numpy."""
+    return out if isinstance(frames, torch.Tensor) else out.cpu().numpy()
+
+
+@torch.inference_mode()
+def deoldify_frames(frames, model: int = 0, render_factor: int = 24, device=None):
+    """``make_deoldify_fn`` applied once to (B, H, W, 3) frames, on their
+    device (``device`` for numpy)."""
+    x = on_device(frames, device)
+    return _residency(frames, make_deoldify_fn(model, render_factor, device=x.device)(x))
+
+
 def make_ddcolor_fn(
     model: int = 1,
     render_factor: int = 24,
@@ -264,6 +280,23 @@ def make_ddcolor_fn(
     return fn
 
 
+@torch.inference_mode()
+def ddcolor_frames(
+    frames,
+    model: int = 1,
+    render_factor: int = 24,
+    tweaks_flags=(False, False, False),
+    tweaks=(DEF_TWEAK_p, "none"),
+    device=None,
+):
+    """``make_ddcolor_fn`` applied once to (B, H, W, 3) frames, on their
+    device (``device`` for numpy)."""
+    x = on_device(frames, device)
+    fn = make_ddcolor_fn(model, render_factor, tweaks_flags=tweaks_flags, tweaks=tweaks,
+                         device=x.device)
+    return _residency(frames, fn(x))
+
+
 def zhang_frames(frames: torch.Tensor, model_name: str = "siggraph17", frame_size: int = 256,
                  device=None) -> torch.Tensor:
     """Zhang adapter: ``frames`` colorized by the ``model_name`` net at
@@ -271,3 +304,41 @@ def zhang_frames(frames: torch.Tensor, model_name: str = "siggraph17", frame_siz
     from .models import zhang as zh
 
     return zh.colorize(registry.zhang(model_name, device), frames, input_size=frame_size)
+
+
+@torch.inference_mode()
+def colorize_gated(
+    frames,
+    sc_prev: Optional[np.ndarray],
+    colorize_fn: Callable,
+    batch_size: int = 8,
+    jit_key=None,
+    params=None,
+    device=None,
+):
+    """``colorize_fn`` on the scene-change frames only (frame 0 always),
+    the other frames passed through: the flagged frames are gathered into
+    batches of ``batch_size``, a short last batch padded by repeating its
+    last frame.  With ``sc_prev=None`` every frame is colorized.
+    ``params``, when given, is passed first (``colorize_fn(params,
+    batch)``); ``jit_key`` named a compile cache in the JAX package and is
+    not used.  Runs on the frames' device (``device`` for numpy); the
+    result lives where the input did."""
+    del jit_key
+    x = on_device(frames, device)
+    if sc_prev is None:
+        idx = np.arange(x.shape[0])
+    else:
+        idx = np.nonzero(np.asarray(sc_prev))[0]
+        if len(idx) == 0 or sc_prev[0] == 0:
+            idx = np.unique(np.concatenate([[0], idx]))
+    fn = colorize_fn if params is None else (lambda chunk: colorize_fn(params, chunk))
+    out = x.clone()
+    for start in range(0, len(idx), batch_size):
+        sel = torch.from_numpy(idx[start:start + batch_size]).to(x.device)
+        chunk = x[sel]
+        n = chunk.shape[0]
+        if n < batch_size:
+            chunk = torch.cat([chunk, chunk[-1:].expand(batch_size - n, *chunk.shape[1:])])
+        out[sel] = fn(chunk)[:n]
+    return _residency(frames, out)

@@ -842,7 +842,7 @@ def HAVC_deepex(
             ref_freq = 0
         with stage_timer("cm_scene_detect"):
             is_ref = scene_detect(clip.frames, threshold=ref_thresh, frequency=ref_freq,
-                                  normalize=ref_norm).sc_prev.astype(bool).copy()
+                                  normalize=ref_norm, device=dev).sc_prev.astype(bool).copy()
         if dir_refs is not None and method in (1, 2):
             for n in dir_refs:
                 if n < len(is_ref):
@@ -964,7 +964,7 @@ def HAVC_restore_video(
     # reference; with ref-merge the reference's flags are every frame
     with stage_timer("cm_scene_detect"):
         detected = scene_detect(clip_ref.frames, threshold=ref_thresh, frequency=ref_freq,
-                                normalize=ref_norm)
+                                normalize=ref_norm, device=dev)
     merge_enabled = not (ref_merge == 0 or method == 6)
     if merge_enabled:
         if ref_weight is None or ref_weight == 0:

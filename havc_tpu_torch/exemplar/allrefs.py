@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.log import HAVCError
+
 # reference constants (vsslib/constants.py:64-73)
 DEF_MAX_MEMORY_FRAMES = 10000
 DEF_MAX_XREF_BUFFER = 500
@@ -54,11 +56,6 @@ __all__ = [
     "allrefs_step_schedule",
     "DEF_NUM_XRF_FRAMES",
 ]
-
-
-class HAVCError(RuntimeError):
-    """A reference-frame list the all-refs render loop refuses (the JAX
-    package's ``utils.log.HAVCError``)."""
 
 
 def allrefs_feed_schedule(

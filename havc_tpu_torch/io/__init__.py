@@ -11,5 +11,6 @@ from .video import (  # noqa: F401
     ref_frame_name,
     write_image,
     write_video,
+    write_video_y4m,
 )
 from .y4m import Y4MReader  # noqa: F401

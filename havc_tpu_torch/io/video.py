@@ -22,6 +22,7 @@ from .stream import FrameReader
 __all__ = [
     "read_video",
     "write_video",
+    "write_video_y4m",
     "read_image",
     "write_image",
     "export_reference_frames",
@@ -86,6 +87,32 @@ def write_video(clip: Clip, path: str, codec: str = "mp4v", batch_size: int = 16
                 out.write(cv2.cvtColor(fr, cv2.COLOR_RGB2BGR))
     finally:
         out.release()
+
+
+def write_video_y4m(
+    clip: Clip,
+    path: str,
+    matrix: str = "709",
+    range_full: bool = False,
+    dither: str = "error_diffusion",
+    device=None,
+) -> None:
+    """Write YUV4MPEG2 4:2:0 (``C420mpeg2``) through ``io.formats``'s
+    restore path: matrix and range conversion where the frames are
+    (``device`` for numpy frames), Floyd-Steinberg dithering in the native
+    library.  ffmpeg reads the file losslessly."""
+    from .formats import restore_format_yuv420p8
+
+    y, u, v = restore_format_yuv420p8(clip.frames, matrix, range_full, dither, device=device)
+    t, h, w = y.shape
+    num = int(round(clip.fps * 1000))
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F{num}:1000 Ip A1:1 C420mpeg2\n".encode())
+        for i in range(t):
+            f.write(b"FRAME\n")
+            f.write(y[i].tobytes())
+            f.write(u[i].tobytes())
+            f.write(v[i].tobytes())
 
 
 def read_image(path: str) -> np.ndarray:

@@ -74,8 +74,8 @@ def _frame_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, out: np.ndarray) 
 class Y4MReader:
     """Sequential reader over one ``.y4m`` file: ``width``, ``height``,
     ``fps``, ``colorspace``; ``read(n, gray)`` returns up to ``n`` frames,
-    or None at the end.  A truncated last frame ends the stream, as in the
-    native reader."""
+    or None at the end; ``read_planes(n)`` their raw Y, U, V planes.  A
+    truncated last frame ends the stream, as in the native reader."""
 
     def __init__(self, path: str):
         self.path = path
@@ -127,25 +127,41 @@ class Y4MReader:
                 return False
         return True
 
-    def read(self, n: int, gray: bool = False) -> Optional[np.ndarray]:
-        """Up to ``n`` frames: (k, H, W) uint8 Y planes when ``gray``,
-        else (k, H, W, 3) uint8 RGB; None when no frame is left."""
-        h, w = self.height, self.width
-        ys = np.empty((n, h, w), np.uint8)
-        cs = None if gray or not self._c_bytes else np.empty((n, self._c_bytes), np.uint8)
+    def _read_frames(self, n: int, keep_chroma: bool):
+        """Up to ``n`` frames: (k, H, W) Y planes and, when kept and
+        present, (k, 2, ceil(H/2), ceil(W/2)) U and V planes; None when no
+        frame is left."""
+        ys = np.empty((n, self.height, self.width), np.uint8)
+        cs = np.empty((n, self._c_bytes), np.uint8) if keep_chroma and self._c_bytes else None
         k = 0
         while k < n and self._read_frame(ys[k], None if cs is None else cs[k]):
             k += 1
         if k == 0:
             return None
-        ys = ys[:k]
+        return ys[:k], None if cs is None else cs[:k].reshape(k, 2, *self._c_shape)
+
+    def read(self, n: int, gray: bool = False) -> Optional[np.ndarray]:
+        """Up to ``n`` frames: (k, H, W) uint8 Y planes when ``gray``,
+        else (k, H, W, 3) uint8 RGB; None when no frame is left."""
+        got = self._read_frames(n, not gray)
+        if got is None:
+            return None
+        ys, cs = got
         if gray:
             return ys
         if cs is None:  # Cmono
             return np.repeat(ys[..., None], 3, axis=-1)
-        ch, cw = self._c_shape
-        cs = cs[:k].reshape(k, 2, ch, cw)
         return yuv420_to_rgb_u8(ys, cs[:, 0], cs[:, 1])
+
+    def read_planes(self, n: int):
+        """Up to ``n`` frames as their uint8 planes: (k, H, W) Y and
+        (k, ceil(H/2), ceil(W/2)) U and V (None for ``Cmono``); None when no
+        frame is left."""
+        got = self._read_frames(n, True)
+        if got is None:
+            return None
+        ys, cs = got
+        return (ys, None, None) if cs is None else (ys, cs[:, 0], cs[:, 1])
 
     def close(self) -> None:
         self._f.close()

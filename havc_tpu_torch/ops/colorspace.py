@@ -12,6 +12,7 @@ Same conventions and layout as ``havc_tpu.ops.colorspace``: float RGB in
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -28,6 +29,8 @@ __all__ = [
     "srgb_to_linear",
     "linear_to_srgb",
     "copy_chroma",
+    "copy_luma",
+    "ciede2000",
     "pymod",
 ]
 
@@ -97,6 +100,11 @@ def copy_chroma(src: torch.Tensor, luma_from: torch.Tensor) -> torch.Tensor:
     yuv_src = rgb_to_yuv(src)
     y = luma(luma_from)
     return yuv_to_rgb(torch.stack([y, yuv_src[..., 1], yuv_src[..., 2]], dim=-1))
+
+
+def copy_luma(src: torch.Tensor, chroma_from: torch.Tensor) -> torch.Tensor:
+    """Luma of ``src`` with the chroma (U, V) of ``chroma_from``."""
+    return copy_chroma(chroma_from, src)
 
 
 # --- HSV ---------------------------------------------------------------------
@@ -221,3 +229,83 @@ def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
     xyz = xyz * _white(xyz)
     lin = _apply_mat3(xyz, _XYZ2RGB)
     return linear_to_srgb(lin)
+
+
+# --- CIEDE2000 ---------------------------------------------------------------
+
+
+def _hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``jnp.hypot``'s arithmetic (the larger leg times sqrt(1 + r^2))."""
+    x, y = x.abs(), y.abs()
+    hi, lo = torch.maximum(x, y), torch.minimum(x, y)
+    r = lo / torch.where(hi == 0, 1.0, hi)
+    return torch.where(hi == 0, hi, hi * torch.sqrt(1 + r * r))
+
+
+def _pow7(x: torch.Tensor) -> torch.Tensor:
+    """``x ** 7`` as XLA's integer power multiplies it: x * x^2 * x^4."""
+    x2 = x * x
+    return (x * x2) * (x2 * x2)
+
+
+_DEG = 180.0 / math.pi  # jnp.degrees / jnp.radians multiply by these
+_RAD = math.pi / 180.0
+
+
+def ciede2000(lab1: torch.Tensor, lab2: torch.Tensor) -> torch.Tensor:
+    """Per-pixel CIEDE2000 difference of two LAB images ``(..., 3)``; the
+    JAX package's formula term for term (hue angles in degrees, taken
+    modulo 360 with the sign of the divisor; achromatic pairs, where
+    C1' C2' is exactly 0, take the hue sum and no hue difference)."""
+    L1, a1, b1 = lab1[..., 0], lab1[..., 1], lab1[..., 2]
+    L2, a2, b2 = lab2[..., 0], lab2[..., 1], lab2[..., 2]
+
+    C1 = _hypot(a1, b1)
+    C2 = _hypot(a2, b2)
+    Cbar = 0.5 * (C1 + C2)
+    c7 = _pow7(Cbar)
+    G = 0.5 * (1.0 - torch.sqrt(c7 / (c7 + 25.0**7 + 1e-30)))
+    a1p = (1.0 + G) * a1
+    a2p = (1.0 + G) * a2
+    C1p = _hypot(a1p, b1)
+    C2p = _hypot(a2p, b2)
+    h1p = pymod(torch.atan2(b1, a1p) * _DEG, 360.0)
+    h2p = pymod(torch.atan2(b2, a2p) * _DEG, 360.0)
+
+    dLp = L2 - L1
+    dCp = C2p - C1p
+    dh = h2p - h1p
+    dh = torch.where(dh > 180.0, dh - 360.0, dh)
+    dh = torch.where(dh < -180.0, dh + 360.0, dh)
+    achromatic = C1p * C2p == 0.0
+    dh = torch.where(achromatic, 0.0, dh)
+    dHp = 2.0 * torch.sqrt(C1p * C2p) * torch.sin(dh * _RAD / 2.0)
+
+    Lbp = 0.5 * (L1 + L2)
+    Cbp = 0.5 * (C1p + C2p)
+    hsum = h1p + h2p
+    hdiff = (h1p - h2p).abs()
+    hbp = torch.where(
+        achromatic,
+        hsum,
+        torch.where(hdiff <= 180.0, 0.5 * hsum,
+                    torch.where(hsum < 360.0, 0.5 * (hsum + 360.0), 0.5 * (hsum - 360.0))),
+    )
+    T = (
+        1.0
+        - 0.17 * torch.cos((hbp - 30.0) * _RAD)
+        + 0.24 * torch.cos((2.0 * hbp) * _RAD)
+        + 0.32 * torch.cos((3.0 * hbp + 6.0) * _RAD)
+        - 0.20 * torch.cos((4.0 * hbp - 63.0) * _RAD)
+    )
+    q = (hbp - 275.0) / 25.0
+    dTheta = 30.0 * torch.exp(-(q * q))
+    cb7 = _pow7(Cbp)
+    Rc = 2.0 * torch.sqrt(cb7 / (cb7 + 25.0**7 + 1e-30))
+    l50 = (Lbp - 50.0) * (Lbp - 50.0)
+    Sl = 1.0 + 0.015 * l50 / torch.sqrt(20.0 + l50)
+    Sc = 1.0 + 0.045 * Cbp
+    Sh = 1.0 + 0.015 * Cbp * T
+    Rt = -torch.sin((2.0 * dTheta) * _RAD) * Rc
+    dl, dc, dhh = dLp / Sl, dCp / Sc, dHp / Sh
+    return torch.sqrt(dl * dl + dc * dc + dhh * dhh + Rt * dc * dhh)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["resize", "resize_kernel_matrix", "KERNELS", "bilinear_nchw", "PadMeta",
-           "smart_resize_pad", "smart_resize_restore"]
+           "smart_resize_pad", "smart_resize_restore", "pad_to_square", "unpad_from_square"]
 
 
 # --- kernel functions (numpy, host-side) ------------------------------------
@@ -244,3 +244,31 @@ def smart_resize_restore(frames: torch.Tensor, meta: PadMeta,
     if pw:
         out = out[..., pw:-pw, :]
     return out
+
+
+def pad_to_square(frames: torch.Tensor, size: int = 512, kernel: str = "lanczos",
+                  border: float = 128.0 / 255.0):
+    """Fit ``(..., H, W, C)`` frames into a ``size`` x ``size`` box keeping
+    their aspect (resized with ``kernel``, clamped to [0, 1]), then fill
+    the rest with ``border`` gray.  Returns (padded, PadMeta), where the
+    PadMeta's pads are the left and top borders in resized pixels."""
+    h, w = frames.shape[-3], frames.shape[-2]
+    scale = size / max(w, h)
+    new_w, new_h = int(w * scale), int(h * scale)
+    out = torch.clamp(resize(frames, new_h, new_w, kernel), 0.0, 1.0)
+    pad_w, pad_h = size - new_w, size - new_h
+    left, top = pad_w // 2, pad_h // 2
+    out = torch.nn.functional.pad(out, (0, 0, left, pad_w - left, top, pad_h - top),
+                                  value=border)
+    return out, PadMeta(h, w, left, top)
+
+
+def unpad_from_square(frames: torch.Tensor, meta: PadMeta, size: int = 512,
+                      kernel: str = "lanczos") -> torch.Tensor:
+    """Crop the content box out of :func:`pad_to_square`'s output and
+    resize it back to the original size."""
+    scale = size / max(meta.orig_w, meta.orig_h)
+    new_w, new_h = int(meta.orig_w * scale), int(meta.orig_h * scale)
+    top, left = meta.pad_h, meta.pad_w
+    out = frames[..., top:top + new_h, left:left + new_w, :]
+    return torch.clamp(resize(out, meta.orig_h, meta.orig_w, kernel), 0.0, 1.0)

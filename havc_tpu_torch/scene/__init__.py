@@ -1,2 +1,8 @@
 """Scene-change detection."""
-from .detect import SceneDetector, SceneFlags, frame_stats, scene_detect  # noqa: F401
+from .detect import (  # noqa: F401
+    SceneDetector,
+    SceneFlags,
+    StreamSceneDetector,
+    frame_stats,
+    scene_detect,
+)

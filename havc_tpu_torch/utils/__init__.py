@@ -1,8 +1,11 @@
-"""Utility helpers: stage timing, the device rule and the uint8 transfer
-boundary."""
+"""Utility helpers: stage timing, the device rule, the uint8 transfer
+boundary and the log."""
+
+from .log import HAVC_LogMessage, HAVCError, MessageType, get_logger  # noqa: F401
 
 from .profiling import (  # noqa: F401
     enable_profiling,
+    on_device,
     profiling_enabled,
     reset_stages,
     resolve_device,

@@ -8,6 +8,9 @@
 - ``resolve_device(device)`` — the port's entry points run on ``cuda``
   unless the caller names another device.  Without CUDA the default
   raises; it never falls back to the CPU.
+- ``on_device(x, device)`` — frames as a float32 tensor: a tensor stays
+  where it lies unless ``device`` names a device, numpy goes to
+  ``resolve_device(device)``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ __all__ = [
     "stage_report",
     "reset_stages",
     "resolve_device",
+    "on_device",
 ]
 
 _ENABLED = [False]
@@ -46,6 +50,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_device(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor: a tensor stays on its device unless
+    ``device`` names one; numpy goes to ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x.float()
+    return torch.as_tensor(x, dtype=torch.float32).to(resolve_device(device))
 
 
 def enable_profiling(on: bool = True) -> None:

@@ -283,18 +283,10 @@ def test_setters_change_the_shared_packs():
 # --- signature parity ----------------------------------------------------------------
 
 # public HAVC_* functions of havc_tpu the port does not have yet, by ROADMAP item
-NOT_PORTED = {
-    "HAVC_SceneDetect": "13 (the scene-detection front end with its debug log)",
-    "HAVC_SceneDetectEdges": "13 (scene/edges.py)",
-    "HAVC_SceneDetectMotion": "13 (scene/motion.py)",
-    "HAVC_clip_overlay": "13 (ops/overlay.py)",
-    "HAVC_degrain": "13 (ops/denoise.py)",
-    "HAVC_extract_reference_frames": "13 (the reference-frame export helpers)",
-    "HAVC_export_reference_frames": "13 (the reference-frame export helpers)",
-    "HAVC_export_list_frames": "13 (the reference-frame export helpers)",
-    "HAVC_ddeoldify": "13 (the legacy wrappers)",
-    "HAVC_cmnet": "13 (the legacy wrappers)",
-}
+NOT_PORTED = {}
+# the ones that compute nothing, so take no ``device``: the setters and the
+# export helpers (they write frames that are already flagged or listed)
+NO_DEVICE = ("HAVC_set_", "HAVC_export_")
 MODULES = ("api.py", "streaming.py", os.path.join("exemplar", "__init__.py"))
 
 
@@ -326,8 +318,8 @@ def _functions(package):
 def test_api_signature_parity():
     """Every public HAVC_* function of the port accepts every parameter of
     its havc_tpu counterpart with the same default, plus ``device`` (default
-    None) where it computes (the ``HAVC_set_*`` setters do not); the ones
-    it lacks are exactly ``NOT_PORTED``."""
+    None) where it computes (``NO_DEVICE`` do not); the ones it lacks are
+    exactly ``NOT_PORTED``, now none."""
     jax_f, port_f = _functions("havc_tpu"), _functions("havc_tpu_torch")
     assert sorted(set(jax_f) - set(port_f)) == sorted(NOT_PORTED)
     assert not set(port_f) - set(jax_f)
@@ -339,5 +331,5 @@ def test_api_signature_parity():
         assert set(port_names) - set(jax_names) <= {"device"}, name
         for k, v in jax_defaults.items():
             assert port_defaults.get(k) == v, (name, k)
-        if not name.startswith("HAVC_set_"):
+        if not name.startswith(NO_DEVICE):
             assert port_defaults.get("device") is None and "device" in port_names, name

@@ -243,6 +243,8 @@ def test_port_imports_neither_jax_nor_havc_tpu():
         "new += ['havc_tpu_torch.models.zhang', 'havc_tpu_torch.exemplar.allrefs']\n"
         "new += ['havc_tpu_torch.models.deepex', 'havc_tpu_torch.models.remaster',\n"
         "        'havc_tpu_torch.ops.fgs']\n"
+        "new += ['havc_tpu_torch.' + m for m in ('scene.edges', 'scene.motion', 'ops.overlay',\n"
+        "        'ops.denoise', 'io.native', 'io.formats', 'metrics', 'utils.log')]\n"
         "missing = [n for n in new if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len([n for n in sys.modules if n.startswith('havc_tpu_torch')]))\n"
