@@ -14,7 +14,8 @@ JSON line; any failure exits non-zero:
    bound and, where one PyTorch call computes the same function, that
    call's time; window attention's two launches (weights, weighted sum)
    also timed apart; the post chain's range-limited forms checked over
-   every float of their ranges.  The ``build`` line before it gives each
+   every float of their ranges; window attention also at the
+   scene-batched scan's B = 6.  The ``build`` line before it gives each
    kernel function's registers, stack, spills and static shared memory
    (``-Xptxas -v``) and its SASS instruction count (``cuobjdump``).
 3. ``main_path``: ``havc_tpu_torch.HAVC_main(clip)`` with its defaults on a
@@ -148,6 +149,30 @@ JSON line; any failure exits non-zero:
     against the CPU within 1e-4 (random pairs within 1e-3 degrees of a
     180-degree hue difference, where the mean hue's branch flips on
     rounding, counted apart).
+28. ``scene_parallel_path`` (after phase 26): ``HAVC_deepex(clip,
+    clip_ref, render_vivid=True, scene_parallel=True,
+    engine_config="full")`` on a seeded 48-frame 1080p clip of six scenes
+    of 8 frames (references from ``HAVC_colorizer`` with scene detection:
+    cuts every 8 frames), then with ``scene_parallel=False``: wall time,
+    fps, peak memory, window-attention calls (7 at B = 6 against 42 at
+    B = 1), host syncs inside both scans (none allowed), the propagated ab
+    of the two against each other (``SCENE_TOL``); a third scene-batched
+    call under ``utils.device_trace`` writes a Chrome trace (its size
+    printed, parsed as JSON) into ``$HAVC_TRACE_DIR`` when that is set,
+    else into a temporary directory.
+29. ``mesh_paths``: ``parallel.make_mesh(1)`` and a ``Mesh`` of two shards
+    that are both cuda:0: ``colormnet_propagate_scenes``,
+    ``deepex_propagate``, ``remaster_propagate``, ``spatial_halo_call`` (a
+    5x5 box blur, halo 2, on 8x1080x1920, rows over two shards) and
+    ``sharded_classic_pipeline`` at its production geometry (resnet101,
+    large, render factor 24, 384; 8 frames of 1080p), each against its
+    unsharded run: the mesh of one bit-identical, two shards within
+    ``MESH2_TOL``; the classic pipeline's post-chain launches (one a shard).
+30. ``convert_roundtrip``: a synthesized DeOldify Video checkpoint (the
+    reference's full key set at the resnet101 shapes, spectral- and
+    weight-normed) converted by ``python -m havc_tpu_torch.models.convert``,
+    loaded through ``engines.set_weights_dir`` on the card, one 8x384x384
+    batch colorized: times, converted tensors, the output's checksum.
 Each of 14-21 prints the wall time of a second call, fps, peak device
 memory, the stage times of a third call (18-22 name ``deepex_vgg``,
 ``deepex_warp``, ``deepex_colorvid``, ``deepex_wls``,
@@ -391,11 +416,11 @@ def phase_window_attn(wa, card: str) -> dict:
     import torch.nn.functional as F
 
     # path, batch 4, a width that is not a multiple of the 4-pixel tile,
-    # channel counts that take the kernels' 4-byte paths, and the odd test
-    # shape
+    # channel counts that take the kernels' 4-byte paths, the odd test
+    # shape, and the scene-batched scan's B = S (six scenes)
     cases = [("path", (1, 14, 28, 64, 1024), 0), ("batched", (4, 14, 28, 64, 1024), 1),
              ("ragged", (1, 14, 27, 64, 1024), 2), ("scalar", (2, 5, 11, 6, 10), 3),
-             ("odd", (2, 6, 9, 16, 32), 0)]
+             ("odd", (2, 6, 9, 16, 32), 0), ("scene_batch", (SCENE_S, 14, 28, 64, 1024), 4)]
     rows, worst, main = [], 0.0, None
     for name, (b, h, w, d_qk, d_vu), seed in cases:
         q, k, v, rel = window_attn_inputs(b, h, w, d_qk, d_vu, seed)
@@ -2381,6 +2406,364 @@ def phase_restore_streaming_engines(pc, wa, card: str, tmp: str) -> dict:
     return total
 
 
+# --- phases 28-30: the scene-batched scan, the mesh paths, checkpoint conversion ---------
+
+SCENE_T, SCENE_PER = 48, 8  # the scene path's clip: six scenes of 8 frames
+SCENE_S = SCENE_T // SCENE_PER
+SCENE_TOL = dict(max_abs=1e-3, moved_share=0.01)  # batched against sequential, per value
+MESH2_TOL = dict(max_abs=1e-3, moved_share=0.01)  # two shards against one device
+
+
+def moved(a: torch.Tensor, b: torch.Tensor, over: float = 1e-4) -> dict:
+    d = (a.float() - b.float()).abs()
+    return dict(max_abs=d.max().item(), moved_share=(d > over).float().mean().item())
+
+
+class Captured:
+    """While active: the ab that ``colormnet_propagate`` and
+    ``colormnet_propagate_scenes`` return, in call order."""
+
+    def __init__(self, exemplar):
+        self.ex, self.ab = exemplar, []
+
+    def __enter__(self):
+        self.real = {n: getattr(self.ex, n)
+                     for n in ("colormnet_propagate", "colormnet_propagate_scenes")}
+        for name, real in self.real.items():
+            def spy(*a, _real=real, **kw):
+                out = _real(*a, **kw)
+                self.ab.append(out)
+                return out
+
+            setattr(self.ex, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.ex, name, real)
+
+
+def phase_scene_parallel_path(ht, pc, wa, card: str) -> dict:
+    """``HAVC_deepex(clip, clip_ref, render_vivid=True, scene_parallel=True,
+    engine_config="full")`` on a seeded 48-frame 1080p clip of six scenes
+    (references from the classic colorizer with scene detection), then the
+    same call with ``scene_parallel=False``: wall time, fps, peak memory,
+    window-attention calls (at B = 6 against B = 1), the host syncs inside
+    both scans, and the propagated ab of the two against each other.  One
+    more scene-parallel call runs under ``utils.device_trace`` (into
+    ``$HAVC_TRACE_DIR`` when set, else a temporary directory)."""
+    from havc_tpu_torch import exemplar
+    from havc_tpu_torch.utils import device_trace
+
+    gray = torch.from_numpy(np.repeat(np.stack(list(smooth_frames(SCENE_T, SCENE_PER, 9)))[
+        ..., None], 3, axis=-1)).cuda()
+    clip = ht.Clip(frames=gray)
+    t0 = time.perf_counter()
+    ref = ht.HAVC_colorizer(clip, sc_threshold=0.10)
+    torch.cuda.synchronize()
+    refs_s = time.perf_counter() - t0
+    cuts = np.nonzero(ref.sc.sc_prev)[0].tolist()
+    want_cuts = list(range(0, SCENE_T, SCENE_PER))
+    if cuts != want_cuts:
+        fail(f"scene_parallel_path: reference cuts {cuts} != {want_cuts}")
+    rows, by_path, outs = {}, {}, {}
+    for name, par in (("scene_parallel", True), ("sequential", False)):
+        def run(par=par):
+            return ht.HAVC_deepex(clip, ref, render_vivid=True, scene_parallel=par,
+                                  engine_config="full")
+
+        _, first_s = timed(run)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(pc, wa)
+        with LoopSyncs(exemplar, ("colormnet_propagate", "colormnet_propagate_scenes")) as loop, \
+                Captured(exemplar) as cap:
+            out, wall_s = timed(run)
+        launches = read_launches(pc, wa)
+        by_path[name] = launches
+        outs[name] = (out.frames, cap.ab[0])
+        rows[name] = dict(first_call_s=first_s, wall_s=wall_s, fps=SCENE_T / wall_s,
+                          max_memory_allocated=torch.cuda.max_memory_allocated(),
+                          window_attn_calls=launches["window_attn"],
+                          window_attn_launches=2 * launches["window_attn"],
+                          scan_host_syncs=loop.by_name, scan_sync_sites=loop.sites[:6],
+                          ab_shape=list(cap.ab[0].shape))
+        if loop.syncs:
+            fail(f"scene_parallel_path {name}: the scan waited for the card {loop.syncs} times")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = os.path.join(os.environ.get("HAVC_TRACE_DIR", tmp), "scene_parallel_trace")
+        with device_trace(trace_dir):
+            ht.HAVC_deepex(clip, ref, render_vivid=True, scene_parallel=True,
+                           engine_config="full")
+        traces = sorted(os.path.join(trace_dir, f) for f in os.listdir(trace_dir))
+        trace_bytes = sum(os.path.getsize(t) for t in traces)
+        with open(traces[0]) as fh:
+            trace_events = len(json.load(fh).get("traceEvents", []))
+    ab = moved(outs["scene_parallel"][1], outs["sequential"][1])
+    rgb = moved(outs["scene_parallel"][0], outs["sequential"][0])
+    f = outs["scene_parallel"][0]
+    finite = bool(torch.isfinite(f).all().item())
+    emit(dict(phase="scene_parallel_path", card=card, clip=[SCENE_T, *MAIN_SHAPE[1:], 3],
+              scenes=SCENE_S, reference_cuts=cuts, references_s=refs_s, runs=rows,
+              ab_scene_vs_sequential=ab, rgb_scene_vs_sequential=rgb, tol=SCENE_TOL,
+              trace_files=[os.path.basename(t) for t in traces], trace_bytes=trace_bytes,
+              trace_events=trace_events,
+              finite=finite, mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item()))
+    if rows["scene_parallel"]["window_attn_calls"] != SCENE_PER - 1:
+        fail(f"scene_parallel_path: window attention ran "
+             f"{rows['scene_parallel']['window_attn_calls']} times at B = {SCENE_S}, expected "
+             f"{SCENE_PER - 1}")
+    if rows["sequential"]["window_attn_calls"] != SCENE_T - SCENE_S:
+        fail(f"scene_parallel_path: the sequential scan ran window attention "
+             f"{rows['sequential']['window_attn_calls']} times, expected {SCENE_T - SCENE_S}")
+    if not finite or ab["max_abs"] > SCENE_TOL["max_abs"] or \
+            ab["moved_share"] > SCENE_TOL["moved_share"]:
+        fail(f"scene_parallel_path: scene-batched against sequential ab {ab} (tol {SCENE_TOL}), "
+             f"finite={finite}")
+    if not trace_events:
+        fail("scene_parallel_path: device_trace wrote no events")
+    return {f"scene_parallel_path/{k}": v for k, v in by_path.items()}
+
+
+def box_blur5(x: torch.Tensor) -> torch.Tensor:
+    """5x5 box blur of (T, H, W, C) with edge padding, as 25 shifted sums
+    (the same arithmetic at every size)."""
+    h, w = x.shape[1], x.shape[2]
+    xp = torch.cat([x[:, :1].expand(-1, 2, -1, -1), x, x[:, -1:].expand(-1, 2, -1, -1)], 1)
+    xp = torch.cat([xp[:, :, :1].expand(-1, -1, 2, -1), xp,
+                    xp[:, :, -1:].expand(-1, -1, 2, -1)], 2)
+    acc = torch.zeros_like(x)
+    for i in range(5):
+        for j in range(5):
+            acc += xp[:, i:i + h, j:j + w]
+    return acc / 25.0
+
+
+def classic_unsharded(frames, do_model, dd_model):
+    """``sharded_classic_pipeline``'s stages called directly on one device."""
+    from havc_tpu_torch.filters import chroma_resize_restore
+    from havc_tpu_torch.models import ddcolor as dd
+    from havc_tpu_torch.models import deoldify as do
+    from havc_tpu_torch.ops import merge as merge_ops
+    from havc_tpu_torch.ops.colorspace import luma
+    from havc_tpu_torch.ops.post_chain import post_chain
+    from havc_tpu_torch.ops.resize import resize
+    from havc_tpu_torch.parallel.mesh import POST_KW
+
+    with torch.inference_mode():
+        w = torch.clamp(resize(frames, 384, 384, "spline64"), 0.0, 1.0)
+        merged = merge_ops.combine_models(do.colorize(do_model, w, 24),
+                                          dd.colorize(dd_model, w, 384), method=3,
+                                          b_weight=0.5)
+        out = chroma_resize_restore(frames, post_chain(merged, **POST_KW))
+        return out, luma(out).mean()
+
+
+def phase_mesh_paths(ht, pc, wa, card: str) -> dict:
+    """The mesh paths on the card: ``make_mesh(1)`` (cuda:0) and a ``Mesh``
+    of two shards that are both cuda:0 (``data`` 2; rows split over
+    ``model`` 2 for the halo call).  Under both: ``colormnet_propagate_scenes``
+    (the full ColorMNet, six scenes of 8 frames at the Medium work size),
+    ``deepex_propagate`` (24 frames at 216x384, three scenes),
+    ``remaster_propagate`` (24 frames at 320x576, 20 references),
+    ``spatial_halo_call`` (a 5x5 box blur, halo 2, on 8x1080x1920) and
+    ``sharded_classic_pipeline`` at its production geometry (resnet101
+    DeOldify, large DDColor, render factor 24, 384, 8 frames of 1080p),
+    each against its unsharded run: the mesh of one exactly, two shards
+    within ``MESH2_TOL`` (Deep-Exemplar's argmax by the share moved)."""
+    from havc_tpu_torch import exemplar
+    from havc_tpu_torch.models import ddcolor as dd
+    from havc_tpu_torch.models import deoldify as do
+    from havc_tpu_torch.ops.colorspace import rgb_to_lab
+    from havc_tpu_torch.parallel import Mesh, make_mesh, sharded_classic_pipeline, \
+        spatial_halo_call
+
+    cuda0 = torch.device("cuda", 0)
+    mesh1 = make_mesh(1)
+    mesh2 = Mesh(np.array([[cuda0], [cuda0]], dtype=object))
+    rows, by_path, bad = {}, {}, []
+
+    def check(name, one, shards, exact, tol=MESH2_TOL):
+        r = dict(mesh1_equal=bool(torch.equal(one[0], one[1])), mesh2=moved(shards, one[1]))
+        rows[name] = r
+        if exact and not r["mesh1_equal"]:
+            bad.append(f"{name}: the mesh of one differs from the unsharded run")
+        if r["mesh2"]["max_abs"] > tol["max_abs"] or r["mesh2"]["moved_share"] > \
+                tol["moved_share"]:
+            bad.append(f"{name}: two shards {r['mesh2']} (tol {tol})")
+
+    # ColorMNet's scene scan at the Medium work size
+    wh, ww = exemplar.smart_resize_shape(1920, 1080, "medium")
+    eng = exemplar._get_engine(config="full", work_size=exemplar.pad112_geometry(wh, ww)[:2],
+                               device="cuda")
+    gray = torch.from_numpy(np.stack(list(smooth_frames(SCENE_T, SCENE_PER, 10, wh, ww)))).cuda()
+    frames = gray[..., None].expand(-1, -1, -1, 3).contiguous()
+    colored = tinted(frames, SCENE_PER)
+    ref_ab = torch.clamp(rgb_to_lab(colored)[..., 1:3] / 110.0, -1.0, 1.0)
+    is_ref = np.zeros(SCENE_T, bool)
+    is_ref[::SCENE_PER] = True
+    cm = [exemplar.colormnet_propagate_scenes(eng, frames, ref_ab, is_ref, ref_frames=colored,
+                                              mesh=m) for m in (None, mesh1, mesh2)]
+    check("colormnet_propagate_scenes", cm[:2], cm[2], True)
+    # Deep-Exemplar's frame batches (no WLS smoother: it runs after the gather)
+    dx_eng = exemplar.DeepExEngine("medium", "cuda")
+    dxf = torch.nn.functional.interpolate(frames[:24].permute(0, 3, 1, 2), size=(
+        dx_eng.h, dx_eng.w), mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    dxr = tinted(dxf.contiguous(), 8)
+    dx_ref = np.zeros(24, bool)
+    dx_ref[::8] = True
+    dx = [exemplar.deepex_propagate(dx_eng, dxf, dxr, dx_ref, wls_filter=False, mesh=m)
+          for m in (None, mesh1, mesh2)]
+    check("deepex_propagate", dx[:2], dx[2], True, dict(max_abs=1.0, moved_share=0.02))
+    # DeepRemaster's window groups
+    rh, rw = exemplar.remaster_work_shape(1920, 1080)
+    rmf = torch.from_numpy(np.stack(list(smooth_frames(24, 8, 11, rh, rw)))).cuda()
+    rmf = rmf[..., None].expand(-1, -1, -1, 3).contiguous()
+    rm_refs = tinted(torch.cat([rmf] * 2)[:20].contiguous(), 4)
+    rm_eng = exemplar.RemasterEngine(device="cuda")
+    rm = [exemplar.remaster_propagate(rm_eng, rmf, rm_refs, ref_positions=np.arange(20),
+                                      mesh=m) for m in (None, mesh1, mesh2)]
+    check("remaster_propagate", rm[:2], rm[2], True)
+    # a row-sharded stencil: the halo exchange
+    x = torch.rand((8, *MAIN_SHAPE[1:], 3), generator=torch.Generator(device="cuda").manual_seed(
+        12), device="cuda")
+    whole = box_blur5(x)
+    rows_mesh = Mesh(np.array([[cuda0, cuda0]], dtype=object))
+    halo = [spatial_halo_call(m, box_blur5, 2)(x) for m in (mesh1, rows_mesh)]
+    check("spatial_halo_call", (whole, halo[0]), halo[1], True, dict(max_abs=0.0,
+                                                                     moved_share=0.0))
+    del x, whole, halo
+    # the classic pipeline at its production geometry
+    kw = dict(do_encoder="resnet101", dd_config="large", rf=24, input_size=384)
+    clip8 = torch.from_numpy(scene_clip_1080p()[:8]).cuda()
+    step1, (do_p, dd_p) = sharded_classic_pipeline(mesh1, **kw)
+    step2, _ = sharded_classic_pipeline(mesh2, **kw)
+    with torch.device("meta"):
+        do_m, dd_m = do.DeOldifyWide(encoder="resnet101", nf_factor=1), dd.DDColor.from_config(
+            "large")
+    do_m = do_m.to_empty(device=cuda0).eval()
+    dd_m = dd_m.to_empty(device=cuda0).eval()
+    do_m.load_state_dict(do_p)
+    dd_m.load_state_dict(dd_p)
+    ref_out, ref_l = classic_unsharded(clip8, do_m, dd_m)
+    del do_m, dd_m
+    steps = {}
+    for name, step in (("mesh1", step1), ("mesh2", step2)):
+        step(do_p, dd_p, clip8)
+        zero_launches(pc, wa)
+        (out, lum), wall_s = timed(lambda: step(do_p, dd_p, clip8))
+        by_path[f"mesh_paths/classic_{name}"] = read_launches(pc, wa)
+        steps[name] = (out, lum, wall_s)
+    check("sharded_classic_pipeline", (ref_out, steps["mesh1"][0]), steps["mesh2"][0], True)
+    rows["sharded_classic_pipeline"].update(
+        wall_s={k: v[2] for k, v in steps.items()},
+        fps={k: 8 / v[2] for k, v in steps.items()},
+        mean_luma={k: v[1].item() for k, v in steps.items()}, mean_luma_unsharded=ref_l.item(),
+        post_chain_launches={k: by_path[f"mesh_paths/classic_{k}"]["post_chain"]
+                             for k in steps})
+    emit(dict(phase="mesh_paths", card=card, meshes={"mesh1": repr(mesh1), "mesh2": repr(mesh2),
+                                                     "rows": repr(rows_mesh)},
+              tol=MESH2_TOL, results=rows))
+    launches = rows["sharded_classic_pipeline"]["post_chain_launches"]
+    if launches != {"mesh1": 1, "mesh2": 2}:
+        bad.append(f"sharded_classic_pipeline: post-chain launches {launches}, expected one a "
+                   f"shard")
+    if bad:
+        fail("mesh_paths: " + "; ".join(bad))
+    return by_path
+
+
+def reference_deoldify_video(model, seed: int = 13) -> dict:
+    """A DeOldify Video checkpoint in the reference's layout (fastai's
+    ``model`` wrapper, the key map's full key set), its tensors seeded at
+    the shapes of the port's resnet101 model: every conv outside the ResNet
+    body spectral-normed (``weight_orig``, ``weight_u``, ``weight_v``), the
+    final pixel shuffle weight-normed (``weight_g``, ``weight_v``)."""
+    from havc_tpu_torch.models import convert
+    from havc_tpu_torch.models.bridge import torch_key
+
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for prefix, (path, kind) in convert.deoldify_wide_key_map().items():
+        for suffix, (leaf, _) in convert._KIND_RULES[kind].items():
+            if torch_key(path + (leaf,)) not in shapes:  # a conv without bias
+                continue
+            shape = shapes[torch_key(path + (leaf,))]
+            if kind == "conv1d_2d" and leaf == "kernel":
+                shape = shape[:-1]  # torch Conv1d (O, I, 1)
+            t = torch.randn(shape, generator=gen)
+            if len(shape) > 1:  # fan-in scale, so that the unnormed ResNet body stays finite
+                t /= float(np.prod(shape[1:])) ** 0.5
+            elif suffix in ("weight", "running_var"):  # scales and variances near 1
+                t = 1.0 + 0.1 * t.abs()
+            else:
+                t *= 0.05
+            sd[f"{prefix}.{suffix}"] = t
+        if kind in ("conv", "conv1d_2d") and not prefix.startswith("layers.0."):
+            w = sd.pop(f"{prefix}.weight")
+            if prefix == "layers.8.conv.0":
+                sd[f"{prefix}.weight_v"] = w
+                sd[f"{prefix}.weight_g"] = torch.rand((w.shape[0],) + (1,) * (w.dim() - 1),
+                                                      generator=gen) + 0.5
+            else:
+                v = torch.nn.functional.normalize(torch.rand(w[0].numel(), generator=gen), dim=0)
+                sd[f"{prefix}.weight_orig"] = w
+                sd[f"{prefix}.weight_u"] = torch.nn.functional.normalize(w.reshape(w.shape[0], -1)
+                                                                         @ v, dim=0)
+                sd[f"{prefix}.weight_v"] = v
+    return {"model": sd}
+
+
+def phase_convert_roundtrip(ht, card: str, tmp: str) -> None:
+    """A synthesized DeOldify Video checkpoint (``reference_deoldify_video``)
+    converted by ``python -m havc_tpu_torch.models.convert``, loaded through
+    ``engines.set_weights_dir`` on the card, and one 8-frame 384x384 batch
+    colorized with it: the conversion time, the converted tensors, the
+    colorize time and the output's checksum."""
+    from havc_tpu_torch import engines
+    from havc_tpu_torch.models import deoldify as do
+
+    with torch.device("meta"):
+        skeleton = do.make_model("video")
+    src, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "weights")
+    os.makedirs(src)
+    torch.save(reference_deoldify_video(skeleton), os.path.join(src, "ColorizeVideo_gen.pth"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "havc_tpu_torch.models.convert", src, out],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    convert_s = time.perf_counter() - t0
+    if res.returncode != 0 or "deoldify_video.npz: converted" not in res.stdout:
+        fail(f"convert_roundtrip: the converter failed ({res.returncode}): "
+             f"{res.stdout[-500:]} {res.stderr[-2000:]}")
+    with np.load(os.path.join(out, "deoldify_video.npz")) as f:
+        n_tensors = len(f.files)
+        head = torch.from_numpy(f["params/head_conv/Conv_0/kernel"]).permute(3, 2, 0, 1)
+    engines.set_weights_dir(out)
+    engines.registry.random_init_used = False  # the earlier phases' seeded engines set it
+    try:
+        model = engines.registry.deoldify("video", "cuda")
+        random_init = engines.registry.random_init_used
+        loaded = bool(torch.equal(model.head_conv.weight.cpu(), head))
+        x = torch.rand((8, 384, 384, 3), generator=torch.Generator(device="cuda").manual_seed(14),
+                       device="cuda")
+        with torch.inference_mode():
+            do.colorize(model, x, 24)
+            y, colorize_s = timed(lambda: do.colorize(model, x, 24))
+        checksum = y.double().sum().item()
+        finite = bool(torch.isfinite(y).all().item())
+    finally:
+        engines.set_weights_dir(None)
+    emit(dict(phase="convert_roundtrip", card=card, checkpoint="ColorizeVideo_gen.pth",
+              checkpoint_bytes=os.path.getsize(os.path.join(src, "ColorizeVideo_gen.pth")),
+              convert_s=convert_s, converted_tensors=n_tensors, colorize_s=colorize_s,
+              batch=list(x.shape), out_checksum=checksum, finite=finite,
+              loaded_random_init=random_init, head_conv_equals_npz=loaded))
+    if random_init or not loaded or not finite:
+        fail(f"convert_roundtrip: random init {random_init}, head conv from the npz {loaded}, "
+             f"finite {finite}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -2445,6 +2828,10 @@ def main() -> None:
         by_path.update(phase_scene_detectors(ht, pc, wa, smi, tmp))
     by_path.update(phase_overlay_degrain(ht, pc, wa, smi))
     by_path.update(phase_legacy_paths(ht, pc, wa, smi))
+    by_path.update(phase_scene_parallel_path(ht, pc, wa, smi))
+    by_path.update(phase_mesh_paths(ht, pc, wa, smi))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_convert_roundtrip(ht, smi, tmp)
     phase_parity(ht)
     phase_engine_parity(ht)
     phase_leftover_parity(ht)

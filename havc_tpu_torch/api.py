@@ -35,8 +35,7 @@ Parameter names, packs and defaults are the JAX package's.
 Every entry point that computes takes ``device``: ``None`` means CUDA and
 raises when there is none; ``device="cpu"`` runs on the CPU.  A clip of numpy frames
 comes back with numpy frames; a clip of tensors comes back with tensors on
-the device it ran on.  What is not ported yet (the multi-device paths) raises
-``NotImplementedError`` naming its ROADMAP item.
+the device it ran on.
 """
 from __future__ import annotations
 
@@ -121,12 +120,6 @@ def HAVC_set_debug_level(debug_level: int = 0):
     """0 = silent, 1 = info (stage timing), 2 = info + debug."""
     if debug_level in (0, 1, 2):
         _DEBUG_LEVEL[0] = debug_level
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to havc_tpu_torch yet (ROADMAP queue 1: {item})"
-    )
 
 
 def _on(clip: Clip, dev: torch.device):
@@ -1626,6 +1619,20 @@ def HAVC_DeepRemaster(*args, **kwargs):
     from .exemplar import HAVC_DeepRemaster as _remaster
 
     return _remaster(*args, **kwargs)
+
+
+def HAVC_deepex(*args, **kwargs):
+    """Re-export of ``exemplar.HAVC_deepex``."""
+    from .exemplar import HAVC_deepex as _deepex
+
+    return _deepex(*args, **kwargs)
+
+
+def HAVC_cmnet2(*args, **kwargs):
+    """Re-export of ``exemplar.HAVC_cmnet2``."""
+    from .exemplar import HAVC_cmnet2 as _cmnet2
+
+    return _cmnet2(*args, **kwargs)
 
 
 def HAVC_read_video(

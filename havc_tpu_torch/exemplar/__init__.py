@@ -25,25 +25,28 @@ its own /16 geometry (``remaster_work_shape``).  The hybrid (``ex_model``
 3) blends ColorMNet with a vivid DeepEx.  Scene bounds, batches, window
 starts and the reference cache are decided on the host from numpy.
 
+In vivid mode every reference rebuilds ColorMNet's core, so the scenes
+are independent: ``colormnet_propagate_scenes`` runs them all in one step
+per frame of the longest scene (``HAVC_deepex(scene_parallel=True)``).
+A ``parallel.Mesh`` splits the scenes, DeepEx's frame batches or
+DeepRemaster's window groups over its ``data`` axis (``mesh=``), the
+networks replicated on each device.
+
 Entry points: ``HAVC_deepex`` (methods 0-6), ``HAVC_cmnet2``,
 ``HAVC_restore_video`` and ``HAVC_DeepRemaster``, with ref-merge
 (``ref_merge`` 1-5), reference directories (``sc_framedir``, the
 ``only_ref_frames`` export) and the all-refs encode modes 2/3
 (``exemplar/allrefs.py``).
-
-Left out (each raises ``NotImplementedError`` naming ROADMAP item 18):
-``scene_parallel`` (the scene-batched scan) and ``mesh=`` (sharding over
-several devices).
 """
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..api import _not_ported
 from ..clip import Clip, SceneFlags
 from ..engines import registry
 from ..filters import chroma_bright_tweak, colormap_filter, dark_tweak, recover_clip_luma
@@ -57,6 +60,7 @@ from ..ops.fgs import fgs_smooth_ab
 from ..ops.resize import resize, smart_resize_pad, smart_resize_restore
 from ..presets import get_colormap
 from ..scene.detect import scene_detect
+from ..utils.log import HAVC_LogMessage, MessageType
 from ..utils.profiling import resolve_device, stage_timer
 from .allrefs import allrefs_feed_schedule, allrefs_step_schedule
 
@@ -69,6 +73,7 @@ __all__ = [
     "DeepExEngine",
     "RemasterEngine",
     "colormnet_propagate",
+    "colormnet_propagate_scenes",
     "deepex_propagate",
     "remaster_propagate",
     "resolve_engine_config",
@@ -181,15 +186,18 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
     return x.flatten(2).transpose(1, 2)
 
 
-def _cm_init_carry(engine: ColorMNetEngine):
+def _cm_init_carry(engine: ColorMNetEngine, scenes: Optional[int] = None):
     """Fresh carry: empty memory, zero hidden and short-term state, frame
-    counter and last memory frame 0."""
+    counter and last memory frame 0; ``scenes`` S batches every device
+    part over a leading scene axis (the hidden and short-term values are
+    scene-major: scene s's objects at rows 2s, 2s + 1)."""
     h16, w16 = engine.g16_hw
     dev = engine.device
-    return (mem.init_memory(engine.mem_cfg, device=dev),
-            torch.zeros((2, engine.hidden_dim, h16, w16), device=dev),
-            torch.zeros((1, engine.key_dim, h16, w16), device=dev),
-            torch.zeros((2, engine.value_dim, h16, w16), device=dev),
+    b = 1 if scenes is None else scenes
+    return (mem.init_memory(engine.mem_cfg, device=dev, scenes=scenes),
+            torch.zeros((2 * b, engine.hidden_dim, h16, w16), device=dev),
+            torch.zeros((b, engine.key_dim, h16, w16), device=dev),
+            torch.zeros((2 * b, engine.value_dim, h16, w16), device=dev),
             0, 0)
 
 
@@ -232,25 +240,36 @@ def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Ten
     return (frames_l3, g16, g8, g4, key, shrink, sel, rab), ref_pre, (lh, lw, fh, fw)
 
 
-def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool):
+def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool,
+                   scenes: Optional[int] = None):
     """The per-frame InferenceCore step ``step(carry, x, ref, reset) ->
     (carry, ab)``: ``x`` holds the frame's precomputed inputs and its
     reference flag, ``ref`` the exemplar's (or None), ``reset`` says whether
     a vivid run rebuilds the core first; ``ab`` is the (2, H, W)
     prediction.  Every branch is taken on the host from the flags and the
-    carry's frame counters."""
+    carry's frame counters.
+
+    ``scenes`` S runs S independent scenes in one step: ``x`` and ``ref``
+    hold one frame per scene (leading S), the carry is
+    ``_cm_init_carry(engine, S)``'s and ``ab`` is (S, 2, H, W).  The flags
+    are shared: every scene is at the same step of its own scan."""
     cfg = engine.mem_cfg
     h16, w16 = engine.g16_hw
     P, Cv = h16 * w16, engine.value_dim
     net = engine.net
     exemplar_insert = (not frame_propagate) or vivid
+    b = 1 if scenes is None else scenes
+    lead = () if scenes is None else (scenes,)
+
+    def tok(x):  # (b, C, h, w) -> (P, C), or (S, P, C) in a scene batch
+        return _tokens(x)[0] if scenes is None else _tokens(x)
 
     def step(carry, x, ref, reset):
         frame_l3, g16, g8, g4, key, shrink, sel, rab, ref_flag = x
         if vivid and reset:  # the whole InferenceCore is rebuilt
-            carry = _cm_init_carry(engine)
+            carry = _cm_init_carry(engine, scenes)
         state, hidden, last_key, last_value, frame_idx, last_mem_t = carry
-        qk, qe = _tokens(key)[0], _tokens(sel)[0]
+        qk, qe = tok(key), tok(sel)
         is_mem = ref_flag or frame_idx - last_mem_t >= cfg.mem_every
         exem = ref_flag and exemplar_insert
         # deep update on every memory frame except exemplar inserts; the
@@ -262,34 +281,43 @@ def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool):
             ref_l3, rg16, rkey, rshrink, rsel, ref_rab = ref
             rvalue, _ = net.value_encoder(ref_l3, rg16, torch.zeros_like(hidden), ref_rab,
                                           deep_update=False)
-            state = mem.insert_working(state, cfg, _tokens(rkey)[0], rshrink.reshape(P),
-                                       _tokens(rsel)[0], _tokens(rvalue), True)
+            state = mem.insert_working(state, cfg, tok(rkey), rshrink.reshape(lead + (P,)),
+                                       tok(rsel), _tokens(rvalue).reshape(lead + (2, P, Cv)),
+                                       True)
             last_key, last_value, last_mem_t = rkey, rvalue, frame_idx
 
         # a match counts (usage) on every step in exemplar mode, else off
         # reference frames and after the first frame
         seg_ran = exemplar_insert or (frame_idx > 0 and not ref_flag)
         mem_read, state = mem.read_memory(state, cfg, qk, qe, update_usage=seg_ran)
-        readout = mem_read.transpose(1, 2).reshape(2, Cv, h16, w16)
+        readout = mem_read.transpose(-1, -2).reshape(2 * b, Cv, h16, w16)
         if not exem:  # the short-term read is skipped on exemplar inserts
-            short = net.short_term_attn(key, last_key, last_value.reshape(1, 2 * Cv, h16, w16))
-            readout = readout + short.reshape(2, Cv, h16, w16)
+            short = net.short_term_attn(key, last_key, last_value.reshape(b, 2 * Cv, h16, w16))
+            readout = readout + short.reshape(2 * b, Cv, h16, w16)
 
         hidden_dec, logits = net.decoder(g16, g8, g4, hidden, readout)
-        ab = rab[0] if ref_flag and not exemplar_insert else torch.tanh(logits)[:, 0]
+        if ref_flag and not exemplar_insert:
+            ab = rab
+        else:
+            ab = torch.tanh(logits)[:, 0].reshape((b, 2) + logits.shape[-2:])
         h1 = hidden_dec if (seg_ran and normal_upd) else hidden
 
         hidden = h1
         if is_mem:  # encode the current frame with its ab and insert it
-            value16, hidden_reinf = net.value_encoder(frame_l3, g16, h1, ab[None])
+            value16, hidden_reinf = net.value_encoder(frame_l3, g16, h1, ab)
             if is_deep:
                 hidden = hidden_reinf
-            state = mem.insert_working(state, cfg, qk, shrink.reshape(P), qe,
-                                       _tokens(value16), True)
+            state = mem.insert_working(state, cfg, qk, shrink.reshape(lead + (P,)), qe,
+                                       _tokens(value16).reshape(lead + (2, P, Cv)), True)
             last_key, last_value, last_mem_t = key, value16, frame_idx
-        return (state, hidden, last_key, last_value, frame_idx + 1, last_mem_t), ab
+        return ((state, hidden, last_key, last_value, frame_idx + 1, last_mem_t),
+                ab[0] if scenes is None else ab)
 
     return step
+
+
+def _host_flags(is_ref) -> np.ndarray:
+    return np.asarray(is_ref.cpu() if isinstance(is_ref, torch.Tensor) else is_ref).astype(bool)
 
 
 def colormnet_propagate(
@@ -337,8 +365,7 @@ def colormnet_propagate(
         frame_propagate = False  # fed refs are always exemplar inserts
         vivid = bool(reset.any())  # the rebuild follows the reset flag
     else:
-        is_ref = np.asarray(is_ref.cpu() if isinstance(is_ref, torch.Tensor) else is_ref)
-        is_ref = is_ref.astype(bool)
+        is_ref = _host_flags(is_ref)
         src, reset = np.arange(len(is_ref)), is_ref
     exemplar_insert = (not frame_propagate) or vivid
     # the exemplars' own keys and values are encoded once per reference
@@ -365,6 +392,106 @@ def colormnet_propagate(
     if return_state:
         return ab, carry
     return ab
+
+
+def _data_shards(engine, mesh):
+    """``(device, engine on it)`` for each index of ``mesh``'s ``data``
+    axis (its first ``model`` column), the network replicated through
+    ``parallel.replicate``; without a mesh the engine alone."""
+    if mesh is None:
+        return [(engine.device, engine)]
+    from ..parallel import replicate
+
+    nets = replicate(engine.net, mesh)
+    out = []
+    for dev in mesh.data_devices():
+        view = copy.copy(engine)
+        view.device, view.net = dev, nets[dev]
+        out.append((dev, view))
+    return out
+
+
+def colormnet_propagate_scenes(
+    engine: ColorMNetEngine,
+    frames,  # (T, H, W, 3) RGB [0,1]
+    ref_ab,  # (T, H, W, 2) normalised ab (read on reference frames)
+    is_ref,  # (T,) bool; is_ref[0] must be True
+    ref_frames=None,
+    frame_propagate: bool = True,
+    mesh=None,  # parallel.Mesh: scenes split over its ``data`` axis
+):
+    """Vivid propagation with the scenes batched: (T, H, W, 2) normalised
+    ab, a tensor on the engine's device.
+
+    In vivid mode every reference rebuilds the InferenceCore, so each
+    scene (a reference and the frames up to the next) is independent.
+    Instead of one step per frame of the clip, one step per frame of the
+    longest scene runs every scene at once: the value encoder at batch S,
+    the decoder at batch 2S, the memory readout as batched products and
+    the window-attention kernel at B = S.  The scenes share the host's
+    schedule of inserts (each starts with a rebuild and an exemplar insert
+    of its reference), so the loop still decides every branch on the host.
+    Equal to ``colormnet_propagate(..., vivid=True)`` up to the rounding of
+    the batched products and the ties they can move in the top-k.
+
+    Scenes are right-padded to the longest by repeating their last frame
+    (those steps' outputs are dropped).  ``mesh`` splits the scenes over
+    its ``data`` axis, the scene count padded to a multiple of it with
+    copies of scene 0, the network replicated on each device; the results
+    are gathered onto the engine's device with one index."""
+    is_ref = _host_flags(is_ref)
+    dev = engine.device
+    frames = _as_tensor(frames, dev)
+    T = int(frames.shape[0])
+    if T == 0:
+        return torch.zeros_like(_as_tensor(ref_ab, dev))
+    if not is_ref[0]:
+        raise ValueError("colormnet_propagate_scenes: is_ref[0] must be True (every scene "
+                         "starts at a reference)")
+    ref_frames = frames if ref_frames is None else _as_tensor(ref_frames, dev)
+    starts = [int(i) for i in np.nonzero(is_ref)[0]]
+    bounds = starts + [T]
+    lengths = [b - a for a, b in zip(bounds[:-1], bounds[1:])]
+    S, L = len(starts), max(lengths)
+    n_data = 1 if mesh is None else int(mesh.shape.get("data", 1))
+    S_pad = -(-S // n_data) * n_data
+    rows = [(starts[i], lengths[i]) if i < S else (starts[0], lengths[0]) for i in range(S_pad)]
+
+    with torch.inference_mode():
+        xs, ref_pre, (lh, lw, fh, fw) = _cm_prepare(engine, frames, _as_tensor(ref_ab, dev),
+                                                    ref_frames, starts)
+        # (L, S_pad) step-major frame index: scene i's frame min(l, len - 1),
+        # made on the device (a host index would be a copy that waits)
+        at = torch.arange(L, device=dev)
+        flat = torch.stack([torch.clamp(at, max=ln - 1) + s0 for s0, ln in rows], dim=1)
+        flat = flat.reshape(-1)
+        xs = [a.index_select(0, flat).reshape((L, S_pad) + a.shape[1:]) for a in xs]
+        if S_pad > S:  # padding scenes take scene 0's reference
+            ref_pre = [torch.cat([a, a[:1].expand((S_pad - S,) + a.shape[1:])]) for a in ref_pre]
+        n = S_pad // n_data
+        shards = []
+        for d, (sdev, eng) in enumerate(_data_shards(engine, mesh)):
+            lo, hi = d * n, (d + 1) * n
+            shards.append(dict(
+                step=_build_cm_step(eng, vivid=True, frame_propagate=frame_propagate, scenes=n),
+                xs=[a[:, lo:hi].to(sdev, non_blocking=True) for a in xs],
+                ref=tuple(a[lo:hi].to(sdev, non_blocking=True) for a in ref_pre),
+                carry=None, outs=[]))  # step 0 rebuilds it
+        with stage_timer("cm_frame_loop"):
+            for l in range(L):  # the shards' launches interleave, so their devices overlap
+                for sh in shards:
+                    sh["carry"], ab = sh["step"](sh["carry"], tuple(a[l] for a in sh["xs"])
+                                                 + (l == 0,), sh["ref"] if l == 0 else None,
+                                                 l == 0)
+                    sh["outs"].append(ab)
+        # (L, S_pad, H, W, 2) on the engine's device, then one gather of
+        # each clip frame's (step, scene) row
+        ab = torch.cat([torch.stack(sh["outs"]).to(dev, non_blocking=True) for sh in shards],
+                       dim=1)
+        ab = ab.permute(0, 1, 3, 4, 2)[:, :, lh:lh + fh, lw:lw + fw]
+        out_idx = torch.cat([torch.arange(ln, device=dev) * S_pad + i
+                             for i, ln in enumerate(lengths)])
+        return ab.reshape((L * S_pad,) + ab.shape[2:]).index_select(0, out_idx)
 
 
 # ---------------------------------------------------------------------------
@@ -408,10 +535,20 @@ def deepex_propagate(
     frame.  ``temperature`` 1e-10 (the entry points') makes the warp a hard
     argmax over the correspondences; 0.01 is the smooth softmax.
     ``vivid`` scales ab by 1.25 before the WLS smoother (``wls_filter``).
-    ``mesh`` (sharding the batch over devices) is ROADMAP item 18."""
-    if mesh is not None:
-        raise _not_ported("deepex_propagate(mesh=...)", "item 18, parallel/mesh.py")
+    ``mesh`` (a ``parallel.Mesh``) splits each batch's frames over its
+    ``data`` axis, ``batch_size`` rounded up to a multiple of it, with the
+    networks and the scene's reference features on every device; the
+    results are gathered onto the engine's device."""
     dev = engine.device
+    nets, devs = (engine.vgg, engine.warp, engine.color), [dev]
+    on = {dev: nets}
+    if mesh is not None:
+        from ..parallel import replicate
+
+        n_data = int(mesh.shape.get("data", 1))
+        batch_size = -(-max(batch_size, n_data) // n_data) * n_data
+        on, devs = replicate(nets, mesh), mesh.data_devices()
+    per = batch_size // len(devs)
     frames, refs = _as_tensor(frames, dev), _as_tensor(refs, dev)
     T = len(frames)
     starts = list(np.nonzero(np.asarray(is_ref, bool))[0])
@@ -430,13 +567,18 @@ def deepex_propagate(
         else:
             last_lab = torch.cat([torch.full_like(ib_lab[..., :1], 50.0),
                                   torch.zeros_like(ib_lab[..., 1:])], dim=-1)
+        ref = (ib_lab, last_lab, b_feat)
+        ref_on = {dev: ref} if mesh is None else replicate(ref, mesh)
         for c0 in range(s0, s1, batch_size):
             n = min(c0 + batch_size, s1) - c0
             chunk = lab_frames[c0:c0 + n]
             if n < batch_size:
                 chunk = torch.cat([chunk, chunk[-1:].expand(batch_size - n, -1, -1, -1)])
-            ab = dx.frame_colorization_batched(engine.vgg, engine.warp, engine.color, chunk,
-                                               ib_lab, last_lab, b_feat, temperature)
+            # one slice of the batch per data shard, each on its device
+            ab = [dx.frame_colorization_batched(
+                *on[d], chunk[k * per:(k + 1) * per].to(d, non_blocking=True), *ref_on[d],
+                temperature) for k, d in enumerate(devs)]
+            ab = torch.cat([a.to(dev, non_blocking=True) for a in ab])
             ab_chunks.append(ab[:n])
     ab_seq = torch.cat(ab_chunks)
     if vivid:  # +25 % saturation
@@ -505,11 +647,20 @@ def remaster_propagate(
     ``ref_frames`` may be a slice).  Up to ``REMASTER_GROUP`` windows that
     share a reference window run in one forward, the encoded references
     cached per window start.  Input: rec601 luma; output: LAB of (luma *
-    100, clip(ab01 * 255 - 128, -100, 100)).  ``mesh`` is ROADMAP item
-    18."""
-    if mesh is not None:
-        raise _not_ported("remaster_propagate(mesh=...)", "item 18, parallel/mesh.py")
+    100, clip(ab01 * 255 - 128, -100, 100)).  ``mesh`` (a
+    ``parallel.Mesh``) splits each forward's windows over its ``data`` axis
+    (the group rounded up to a multiple of it), with NetworkC and the
+    encoded references on every device; the results are gathered onto the
+    engine's device."""
     dev = engine.device
+    group, devs, on = REMASTER_GROUP, [dev], {dev: engine.model}
+    if mesh is not None:
+        from ..parallel import replicate
+
+        n_data = int(mesh.shape.get("data", 1))
+        group = -(-max(group, n_data) // n_data) * n_data
+        on, devs = replicate(engine.model, mesh), mesh.data_devices()
+    per = group // len(devs)
     frames, refs = _as_tensor(frames, dev), _as_tensor(ref_frames, dev)
     T, R = frames.shape[0], refs.shape[0]
     S = min(ref_buffer_size, R)
@@ -517,17 +668,16 @@ def remaster_propagate(
     win_starts = _remaster_window_starts(T, length, S, R, pos, future_frame_weight, frame0)
     starts = list(range(0, T, length))
     l01 = luma(frames)[..., None]  # (T, H, W, 1)
-    model = engine.model
     outs, ref_cache, i = [], {}, 0
     while i < len(starts):
         ws, j = win_starts[i], i
-        while j < len(starts) and win_starts[j] == ws and j - i < REMASTER_GROUP:
+        while j < len(starts) and win_starts[j] == ws and j - i < group:
             j += 1
         if ws not in ref_cache:  # only the current window's encoding is kept
             with stage_timer("remaster_encode_refs"):
                 window = refs[ws:ws + S].permute(3, 0, 1, 2)[None]  # (1, 3, S, H, W)
-                ref_cache = {ws: model.encode_refs(window)}
-        reffeat, reffeat2 = ref_cache[ws]
+                feats = engine.model.encode_refs(window)
+                ref_cache = {ws: {dev: feats} if mesh is None else replicate(feats, mesh)}
         chunks = []
         for st in starts[i:j]:
             c = l01[st:st + length]
@@ -535,10 +685,12 @@ def remaster_propagate(
                 c = torch.cat([c, c[-1:].expand(length - c.shape[0], -1, -1, -1)])
             chunks.append(c)
         n_real = len(chunks)
-        chunks += [chunks[-1]] * (REMASTER_GROUP - n_real)
+        chunks += [chunks[-1]] * (group - n_real)
         with stage_timer("remaster_windows"):
             batch = torch.stack(chunks).permute(0, 4, 1, 2, 3)  # (G, 1, length, H, W)
-            ab01g = model.colorize_with_refs(batch, reffeat, reffeat2).permute(0, 2, 3, 4, 1)
+            ab01g = [on[d].colorize_with_refs(batch[k * per:(k + 1) * per].to(
+                d, non_blocking=True), *ref_cache[ws][d]) for k, d in enumerate(devs)]
+            ab01g = torch.cat([a.to(dev, non_blocking=True) for a in ab01g]).permute(0, 2, 3, 4, 1)
         for k in range(n_real):
             outs.append(ab01g[k][:min(length, T - starts[i + k])])
         i = j
@@ -602,7 +754,7 @@ def _exemplar_dispatch(clip: Clip, ref_frames: torch.Tensor, is_ref: np.ndarray,
                        render_vivid: bool, ref_weight: float, merge_enabled: bool, ref_merge: int,
                        max_memory_frames: int, engine_config: str, dev: torch.device,
                        use_all_refs: bool = False, frame_mindim: int = 320,
-                       batch_size: int = 8):
+                       batch_size: int = 8, scene_parallel: bool = False, scene_mesh=None):
     """Work-size prep -> the engine of ``ex_model`` -> ref-merge blend: the
     colored frames at work size and the pad geometry.
 
@@ -614,9 +766,12 @@ def _exemplar_dispatch(clip: Clip, ref_frames: torch.Tensor, is_ref: np.ndarray,
     ColorMNet with a vivid DeepEx at ``max(REFMERGE_WEIGHT[ref_merge],
     0.3)``.  ``use_all_refs`` (encode modes 2/3, ColorMNet) feeds the
     scene-change references in the all-refs look-ahead order
-    (``exemplar/allrefs.py``).  With ``merge_enabled`` the frames that are
-    not references are blended with their reference, ``color * (1 -
-    ref_weight) + ref * ref_weight``."""
+    (``exemplar/allrefs.py``).  ``scene_parallel`` runs a vivid ColorMNet
+    with more than one reference through ``colormnet_propagate_scenes``
+    (over ``scene_mesh``'s ``data`` axis when given); in any other case it
+    logs a warning and the sequential scan runs.  With ``merge_enabled``
+    the frames that are not references are blended with their reference,
+    ``color * (1 - ref_weight) + ref * ref_weight``."""
     if ex_model not in (0, 1, 2, 3):
         raise ValueError(f"HAVC_deepex: unsupported ex_model {ex_model}")
     if render_vivid and ex_model == 2:
@@ -640,12 +795,27 @@ def _exemplar_dispatch(clip: Clip, ref_frames: torch.Tensor, is_ref: np.ndarray,
             kw["max_mem"] = int(max_memory_frames)
         engine = _get_engine(**kw)
         ref_ab = torch.clamp(rgb_to_lab(work_refs)[..., 1:3] / 110.0, -1.0, 1.0)
+        # vivid resets make the scenes independent: one step for all of them
+        use_scenes = (not use_all_refs and scene_parallel and vivid and bool(is_ref[0])
+                      and int(is_ref.sum()) > 1)
+        if scene_parallel and not use_scenes:
+            HAVC_LogMessage(
+                MessageType.WARNING,
+                "HAVC: scene_parallel=True requested but the scene-batched "
+                "scan requires render_vivid=True, is_ref[0]=True, >1 "
+                "reference and encode_mode in (0, 1) — falling back to the "
+                "sequential scan",
+            )
         if use_all_refs:
             eff, reset = allrefs_step_schedule(
                 allrefs_feed_schedule(is_ref), vid_length=len(work_frames),
                 reset_on_ref_update=vivid, max_memory_frames=max_memory_frames)
             ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
                                      feed_schedule=eff, reset_schedule=reset)
+        elif use_scenes:
+            ab = colormnet_propagate_scenes(engine, work_frames, ref_ab, is_ref,
+                                            ref_frames=work_refs,
+                                            frame_propagate=frame_propagate, mesh=scene_mesh)
         else:
             ab = colormnet_propagate(engine, work_frames, ref_ab, is_ref, ref_frames=work_refs,
                                      frame_propagate=frame_propagate, vivid=vivid)
@@ -771,9 +941,11 @@ def HAVC_deepex(
     ``ref_norm`` picks the propagation references, and the other frames
     are blended with their reference at ``REFMERGE_WEIGHT[ref_merge]``.
     ``encode_mode`` 2/3 feed the references in the all-refs look-ahead
-    order.  Same parameters and defaults as the JAX package's, plus
-    ``device``."""
-    del enable_resize, scene_mesh
+    order.  ``scene_parallel`` with ``render_vivid`` runs ColorMNet's
+    scenes batched (``colormnet_propagate_scenes``), over ``scene_mesh``'s
+    ``data`` axis when one is given.  Same parameters and defaults as the
+    JAX package's, plus ``device``."""
+    del enable_resize
     if clip is None:
         raise ValueError("HAVC_deepex: clip is required")
     if vivid is not None:
@@ -808,10 +980,6 @@ def HAVC_deepex(
             render_vivid=render_vivid, encode_mode=encode_mode, engine_config=engine_config,
             batch_size=batch_size, device=device,
         )
-    if scene_parallel:
-        raise _not_ported("scene_parallel (colormnet_propagate_scenes)",
-                          "item 18, parallel/mesh.py")
-
     if clip_ref is not None and clip_ref.sc is None:
         raise ValueError(
             "HAVC_deepex: reference clip has no scene-change flags "
@@ -863,7 +1031,7 @@ def HAVC_deepex(
     colored_small, pad_meta = _exemplar_dispatch(
         clip, ref_frames, is_ref, render_speed, ex_model, frame_propagate, render_vivid,
         ref_weight, enable_refmerge, ref_merge, max_memory_frames, engine_config, dev,
-        encode_mode in (2, 3), frame_mindim, batch_size)
+        encode_mode in (2, 3), frame_mindim, batch_size, scene_parallel, scene_mesh)
     with stage_timer("cm_restore"):
         out = _restore_full(clip, colored_small, pad_meta, batch_size).with_sc(clip_ref.sc)
     return out.to_host() if to_host else out

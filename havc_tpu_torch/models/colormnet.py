@@ -358,29 +358,31 @@ def stable_top_k(x: torch.Tensor, k: int):
 def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor], qk: torch.Tensor,
                    qe: Optional[torch.Tensor]) -> torch.Tensor:
     """Anisotropic L2 similarity.  mk (N, Ck) memory keys, ms (N,)
-    shrinkage, qk (P, Ck) query keys, qe (P, Ck) selection -> (N, P)."""
+    shrinkage, qk (P, Ck) query keys, qe (P, Ck) selection -> (N, P); with
+    leading batch axes on all four, batched products."""
     ck = mk.shape[-1]
     if qe is not None:
-        a_sq = (mk ** 2) @ qe.T
-        two_ab = 2.0 * (mk @ (qk * qe).T)
-        b_sq = (qe * qk ** 2).sum(dim=-1)[None]
+        a_sq = (mk ** 2) @ qe.transpose(-1, -2)
+        two_ab = 2.0 * (mk @ (qk * qe).transpose(-1, -2))
+        b_sq = (qe * qk ** 2).sum(dim=-1)[..., None, :]
         sim = -a_sq + two_ab - b_sq
     else:
-        sim = -(mk ** 2).sum(dim=-1)[:, None] + 2.0 * (mk @ qk.T)
+        sim = -(mk ** 2).sum(dim=-1)[..., None] + 2.0 * (mk @ qk.transpose(-1, -2))
     if ms is not None:
-        sim = sim * ms[:, None]
+        sim = sim * ms[..., None]
     return sim / math.sqrt(ck)
 
 
 def topk_softmax(sim: torch.Tensor, top_k: int = 30, valid: Optional[torch.Tensor] = None):
     """Top-k softmax over the memory axis.  sim (N, P), valid (N,) live
-    slots -> (affinity (N, P), usage (N,)); an all-masked memory reads as
-    zeros."""
+    slots -> (affinity (N, P), usage (N,)), with any leading batch axes; an
+    all-masked memory reads as zeros."""
     if valid is not None:
-        sim = torch.where(valid[:, None], sim, -1e30)
-    values, idx = stable_top_k(sim.T, min(top_k, sim.shape[0]))  # (P, k)
+        sim = torch.where(valid[..., None], sim, -1e30)
+    sim_t = sim.transpose(-1, -2)  # (..., P, N)
+    values, idx = stable_top_k(sim_t, min(top_k, sim.shape[-2]))  # (..., P, k)
     live = values > -1e29
-    x_exp = torch.where(live, torch.exp(values - values[:, :1]), 0.0)
+    x_exp = torch.where(live, torch.exp(values - values[..., :1]), 0.0)
     x_exp = x_exp / torch.clamp(x_exp.sum(dim=-1, keepdim=True), min=1e-30)
-    affinity = torch.zeros_like(sim.T).scatter(1, idx, x_exp)  # (P, N)
-    return affinity.T, affinity.sum(dim=0)
+    affinity = torch.zeros_like(sim_t).scatter(-1, idx, x_exp)  # (..., P, N)
+    return affinity.transpose(-1, -2), affinity.sum(dim=-2)

@@ -20,6 +20,13 @@ long-term tokens are evicted, whether eviction runs) stays on the device:
 both branches are computed and ``torch.where`` picks.  Every tie among
 equal keys is broken as ``jax.lax.top_k`` breaks it (``stable_top_k``).
 
+With a leading scene axis (``init_memory(..., scenes=S)``) every device
+tensor gains a first dimension of S and the functions run all S memories
+at once: batched products, top-k along the last axis, eviction by
+``torch.where`` per scene.  The host copies stay one schedule shared by
+all S: the scene-batched scan starts every scene with a rebuild and an
+exemplar insert at step 0, so each scene inserts at the same steps.
+
 The functions update the state's tensors in place and return it.
 """
 from __future__ import annotations
@@ -51,6 +58,8 @@ class MemoryConfig(NamedTuple):
 
 @dataclass
 class MemoryState:
+    # device tensors: shapes without the scene axis; with it each gains a
+    # leading S
     # working store (frame granularity, insertion-stamped ring)
     work_keys: torch.Tensor  # (W, P, Ck)
     work_shrink: torch.Tensor  # (W, P)
@@ -73,26 +82,30 @@ class MemoryState:
     host_stamp: np.ndarray  # (W,) int == work_stamp
 
 
-def init_memory(cfg: MemoryConfig, device=None, dtype=torch.float32) -> MemoryState:
+def init_memory(cfg: MemoryConfig, device=None, dtype=torch.float32,
+                scenes: Optional[int] = None) -> MemoryState:
+    """An empty memory; ``scenes`` S gives every device tensor a leading
+    scene axis."""
     W, P, L, O = cfg.max_mt_frames, cfg.tokens_per_frame, cfg.lt_capacity, cfg.num_objects
     assert cfg.max_mt_frames >= 2, "need >= 2 working frame slots"
     assert cfg.max_mt_frames > cfg.min_mt_frames >= 1
+    s = () if scenes is None else (int(scenes),)
     kw = dict(device=device, dtype=dtype)
     return MemoryState(
-        work_keys=torch.zeros((W, P, cfg.key_dim), **kw),
-        work_shrink=torch.ones((W, P), **kw),
-        work_sel=torch.zeros((W, P, cfg.key_dim), **kw),
-        work_values=torch.zeros((O, W, P, cfg.value_dim), **kw),
-        work_use=torch.zeros((W, P), device=device),
-        work_life=torch.full((W, P), 1e-7, device=device),
-        work_valid=torch.zeros((W,), dtype=torch.bool, device=device),
-        work_stamp=torch.zeros((W,), dtype=torch.int32, device=device),
-        lt_keys=torch.zeros((L, cfg.key_dim), **kw),
-        lt_shrink=torch.ones((L,), **kw),
-        lt_values=torch.zeros((O, L, cfg.value_dim), **kw),
-        lt_use=torch.zeros((L,), device=device),
-        lt_life=torch.full((L,), 1e-7, device=device),
-        lt_valid=torch.zeros((L,), dtype=torch.bool, device=device),
+        work_keys=torch.zeros(s + (W, P, cfg.key_dim), **kw),
+        work_shrink=torch.ones(s + (W, P), **kw),
+        work_sel=torch.zeros(s + (W, P, cfg.key_dim), **kw),
+        work_values=torch.zeros(s + (O, W, P, cfg.value_dim), **kw),
+        work_use=torch.zeros(s + (W, P), device=device),
+        work_life=torch.full(s + (W, P), 1e-7, device=device),
+        work_valid=torch.zeros(s + (W,), dtype=torch.bool, device=device),
+        work_stamp=torch.zeros(s + (W,), dtype=torch.int32, device=device),
+        lt_keys=torch.zeros(s + (L, cfg.key_dim), **kw),
+        lt_shrink=torch.ones(s + (L,), **kw),
+        lt_values=torch.zeros(s + (O, L, cfg.value_dim), **kw),
+        lt_use=torch.zeros(s + (L,), device=device),
+        lt_life=torch.full(s + (L,), 1e-7, device=device),
+        lt_valid=torch.zeros(s + (L,), dtype=torch.bool, device=device),
         next_stamp=0,
         host_valid=np.zeros(W, bool),
         host_stamp=np.zeros(W, np.int64),
@@ -101,9 +114,22 @@ def init_memory(cfg: MemoryConfig, device=None, dtype=torch.float32) -> MemorySt
 
 def _candidates(valid, stamp, cfg: MemoryConfig):
     """Consolidation candidates: every live frame but the first insert and
-    the ``min_mt_frames - 1`` most recent.  Works on numpy or torch."""
-    s_max = (stamp * valid + (-1) * ~valid).max()
+    the ``min_mt_frames - 1`` most recent.  Works on numpy or torch, with
+    or without a leading scene axis."""
+    live = stamp * valid + (-1) * ~valid
+    s_max = (live.max(axis=-1, keepdims=True) if isinstance(live, np.ndarray)
+             else live.amax(dim=-1, keepdim=True))
     return valid & (stamp >= 1) & (stamp <= s_max - (cfg.min_mt_frames - 1))
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, :]`` per leading index: x (..., n, C), idx (..., k)."""
+    return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+
+def _put_rows(x: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """``x[..., idx, :] = rows`` in place, per leading index (idx unique)."""
+    x.scatter_(-2, idx[..., None].expand(rows.shape), rows)
 
 
 def _consolidate(s: MemoryState, cfg: MemoryConfig) -> MemoryState:
@@ -111,49 +137,53 @@ def _consolidate(s: MemoryState, cfg: MemoryConfig) -> MemoryState:
     W, P, L, O = cfg.max_mt_frames, cfg.tokens_per_frame, cfg.lt_capacity, cfg.num_objects
     n = W * P
     k_p = min(cfg.num_prototypes, n)
+    lead = tuple(s.work_valid.shape[:-1])  # () or (S,)
 
     cand_frame = _candidates(s.work_valid, s.work_stamp, cfg)
-    cand_tok = cand_frame[:, None].expand(W, P).reshape(n)
-    keys = s.work_keys.reshape(n, -1)
-    shrink = s.work_shrink.reshape(n)
-    sel = s.work_sel.reshape(n, -1)
-    values = s.work_values.reshape(O, n, -1)
-    usage = (s.work_use / s.work_life).reshape(n)
+    cand_tok = cand_frame[..., None].expand(lead + (W, P)).reshape(lead + (n,))
+    keys = s.work_keys.reshape(lead + (n, -1))
+    shrink = s.work_shrink.reshape(lead + (n,))
+    sel = s.work_sel.reshape(lead + (n, -1))
+    values = s.work_values.reshape(lead + (O, n, -1))
+    usage = (s.work_use / s.work_life).reshape(lead + (n,))
 
     # prototypes = the highest normalised-usage candidate tokens
     topv, proto_idx = stable_top_k(torch.where(cand_tok, usage, -torch.inf), k_p)
     proto_ok = topv > -torch.inf
-    proto_keys, proto_sel = keys[proto_idx], sel[proto_idx]
+    proto_keys, proto_sel = _rows(keys, proto_idx), _rows(sel, proto_idx)
 
     # potentiation: softmax affinity of all candidates onto each prototype,
     # queried with the prototypes' selection
-    sim = get_similarity(keys, shrink, proto_keys, proto_sel)  # (n, k_p)
-    sim = torch.where(cand_tok[:, None], sim, -torch.inf)
-    m = sim.max(dim=0, keepdim=True).values
-    e = torch.where(cand_tok[:, None], torch.exp(sim - m), 0.0)
-    aff = e / torch.clamp(e.sum(dim=0, keepdim=True), min=1e-30)
-    proto_values = torch.einsum("nk,onc->okc", aff, values)
-    proto_shrink = aff.T @ shrink
+    sim = get_similarity(keys, shrink, proto_keys, proto_sel)  # (..., n, k_p)
+    sim = torch.where(cand_tok[..., None], sim, -torch.inf)
+    m = sim.max(dim=-2, keepdim=True).values
+    e = torch.where(cand_tok[..., None], torch.exp(sim - m), 0.0)
+    aff = e / torch.clamp(e.sum(dim=-2, keepdim=True), min=1e-30)
+    proto_values = torch.einsum("...nk,...onc->...okc", aff, values)
+    proto_shrink = (aff.transpose(-1, -2) @ shrink if not lead
+                    else (aff.transpose(-1, -2) @ shrink[..., None])[..., 0])
 
     # long-term eviction: once the store reaches L - k_p tokens, keep only
     # those whose normalised usage is strictly above the drop-th smallest;
-    # computed always, applied where it is due
-    lcount = s.lt_valid.sum()
+    # computed always, applied per scene where it is due
+    lcount = s.lt_valid.sum(dim=-1, keepdim=True)
     drop = lcount - (L - k_p)
     lu = torch.where(s.lt_valid, s.lt_use / s.lt_life, torch.inf)
-    thr = torch.sort(lu).values.gather(0, torch.clamp(drop - 1, 0, L - 1).reshape(1))
+    thr = torch.sort(lu, dim=-1).values.gather(-1, torch.clamp(drop - 1, 0, L - 1))
     due = (lcount >= L - k_p) & (drop > 0)
     s.lt_valid = torch.where(due, s.lt_valid & (lu > thr), s.lt_valid)
 
     # append the prototypes into the first k_p free long-term slots
     dst = stable_top_k(1.0 - s.lt_valid.float(), k_p)[1]
-    ok = proto_ok[:, None]
-    s.lt_keys.index_copy_(0, dst, torch.where(ok, proto_keys, s.lt_keys[dst]))
-    s.lt_shrink.index_copy_(0, dst, torch.where(proto_ok, proto_shrink, s.lt_shrink[dst]))
-    s.lt_values.index_copy_(1, dst, torch.where(ok[None], proto_values, s.lt_values[:, dst]))
-    s.lt_use.index_copy_(0, dst, torch.where(proto_ok, 0.0, s.lt_use[dst]))
-    s.lt_life.index_copy_(0, dst, torch.where(proto_ok, 1e-7, s.lt_life[dst]))
-    s.lt_valid.index_copy_(0, dst, proto_ok | s.lt_valid[dst])
+    ok = proto_ok[..., None]
+    _put_rows(s.lt_keys, dst, torch.where(ok, proto_keys, _rows(s.lt_keys, dst)))
+    _put_rows(s.lt_values, dst[..., None, :].expand(lead + (O, k_p)),
+              torch.where(ok[..., None, :, :], proto_values,
+                          _rows(s.lt_values, dst[..., None, :].expand(lead + (O, k_p)))))
+    for name, fresh in (("lt_shrink", proto_shrink), ("lt_use", 0.0), ("lt_life", 1e-7)):
+        t = getattr(s, name)
+        t.scatter_(-1, dst, torch.where(proto_ok, fresh, t.gather(-1, dst)))
+    s.lt_valid.scatter_(-1, dst, proto_ok | s.lt_valid.gather(-1, dst))
 
     # sieve: consolidated frames leave the working store
     s.work_valid &= ~cand_frame
@@ -165,23 +195,24 @@ def insert_working(state: MemoryState, cfg: MemoryConfig, keys: torch.Tensor,
                    shrink: torch.Tensor, sel: torch.Tensor, values: torch.Tensor,
                    enabled: bool) -> MemoryState:
     """One ``add_memory``: write the frame (keys (P, Ck), shrink (P,), sel
-    (P, Ck), values (O, P, Cv)) into the working store, then consolidate
-    if the store is full.  ``enabled`` is a host bool: False is a no-op."""
+    (P, Ck), values (O, P, Cv); each with a leading S in a scene batch)
+    into the working store, then consolidate if the store is full.
+    ``enabled`` is a host bool: False is a no-op."""
     if not enabled:
         return state
     W = cfg.max_mt_frames
     stamp = state.next_stamp
     slot = 0 if stamp == 0 else 1 + (stamp - 1) % (W - 1)
-    state.work_keys[slot] = keys
-    state.work_shrink[slot] = shrink
-    state.work_sel[slot] = sel
-    state.work_values[:, slot] = values
+    state.work_keys.select(-3, slot).copy_(keys)
+    state.work_shrink.select(-2, slot).copy_(shrink)
+    state.work_sel.select(-3, slot).copy_(sel)
+    state.work_values.select(-3, slot).copy_(values)
     # fill_ in place: item assignment of a Python bool or int to a CUDA
     # tensor copies it from the host, which waits for the card
-    state.work_use[slot].fill_(0.0)
-    state.work_life[slot].fill_(1e-7)
-    state.work_valid[slot].fill_(True)
-    state.work_stamp[slot].fill_(stamp)
+    state.work_use.select(-2, slot).fill_(0.0)
+    state.work_life.select(-2, slot).fill_(1e-7)
+    state.work_valid.select(-1, slot).fill_(True)
+    state.work_stamp.select(-1, slot).fill_(stamp)
     state.host_valid[slot] = True
     state.host_stamp[slot] = stamp
     state.next_stamp = stamp + 1
@@ -194,27 +225,30 @@ def read_memory(state: MemoryState, cfg: MemoryConfig, qk: torch.Tensor,
                 qe: Optional[torch.Tensor], update_usage: bool = True
                 ) -> Tuple[torch.Tensor, MemoryState]:
     """Top-k softmax readout over [long-term, working] tokens for query
-    keys qk (P, Ck) with selection qe (P, Ck): returns the (O, P, Cv)
-    readout and the state with use/life counts updated (only when
-    ``update_usage`` and the memory holds anything).  An empty memory reads
-    as zeros."""
+    keys qk (P, Ck) with selection qe (P, Ck) (each with a leading S in a
+    scene batch): returns the (O, P, Cv) readout and the state with use/life
+    counts updated (only when ``update_usage`` and the memory holds
+    anything).  An empty memory reads as zeros."""
     W, P, L, O = cfg.max_mt_frames, cfg.tokens_per_frame, cfg.lt_capacity, cfg.num_objects
-    mk = torch.cat([state.lt_keys, state.work_keys.reshape(W * P, -1)])
-    ms = torch.cat([state.lt_shrink, state.work_shrink.reshape(W * P)])
-    valid = torch.cat([state.lt_valid, state.work_valid[:, None].expand(W, P).reshape(W * P)])
+    lead = tuple(state.work_valid.shape[:-1])
+    mk = torch.cat([state.lt_keys, state.work_keys.reshape(lead + (W * P, -1))], dim=-2)
+    ms = torch.cat([state.lt_shrink, state.work_shrink.reshape(lead + (W * P,))], dim=-1)
+    valid = torch.cat([state.lt_valid, state.work_valid[..., None].expand(lead + (W, P))
+                       .reshape(lead + (W * P,))], dim=-1)
     affinity, usage = topk_softmax(get_similarity(mk, ms, qk, qe), cfg.top_k, valid)
     # the readout of the two stores summed, instead of one product over
     # their concatenation (which would copy the long-term values each frame)
-    out = torch.einsum("np,onc->opc", affinity[:L], state.lt_values) + torch.einsum(
-        "np,onc->opc", affinity[L:], state.work_values.reshape(O, W * P, -1))
+    out = torch.einsum("...np,...onc->...opc", affinity[..., :L, :], state.lt_values) \
+        + torch.einsum("...np,...onc->...opc", affinity[..., L:, :],
+                       state.work_values.reshape(lead + (O, W * P, -1)))
 
     if update_usage:
-        matched = valid.any()
-        work_live = (state.work_valid & matched)[:, None]
-        state.work_use += torch.where(work_live, usage[L:].reshape(W, P), 0.0)
+        matched = valid.any(dim=-1, keepdim=True)
+        work_live = (state.work_valid & matched)[..., None]
+        state.work_use += torch.where(work_live, usage[..., L:].reshape(lead + (W, P)), 0.0)
         state.work_life += torch.where(work_live, 1.0, 0.0)
         if cfg.count_long_usage:
             lt_live = state.lt_valid & matched
-            state.lt_use += torch.where(lt_live, usage[:L], 0.0)
+            state.lt_use += torch.where(lt_live, usage[..., :L], 0.0)
             state.lt_life += torch.where(lt_live, 1.0, 0.0)
     return out, state

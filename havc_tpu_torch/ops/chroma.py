@@ -26,6 +26,7 @@ from .colorspace import hsv_to_rgb, pymod, rgb_to_hsv, rgb_to_yuv, yuv_to_rgb
 __all__ = [
     "HueAdjust",
     "NAMED_HUE_RANGES",
+    "get_color_tune",
     "parse_hue_range",
     "parse_hue_ranges",
     "parse_hue_adjust",
@@ -68,6 +69,27 @@ class HueAdjust(NamedTuple):
     sat: float
     hue: int  # hue shift in degrees (+/-360)
     weight: float
+
+
+# Color-tune name -> hue range string
+_COLOR_TUNE = {
+    "magenta": "270:300",
+    "magenta/violet": "270:330",
+    "violet": "300:330",
+    "violet/red": "300:360",
+    "blue/magenta": "240:300",
+    "yellow": "60:90",
+    "yellow/orange": "30:90",
+    "yellow/green": "60:120",
+}
+
+
+def get_color_tune(name: str) -> str:
+    """The hue range string of a color-tune name."""
+    try:
+        return _COLOR_TUNE[name]
+    except KeyError:
+        raise ValueError(f"HAVC: unknown color tune: {name}")
 
 
 def parse_hue_range(hue_range: str) -> tuple:

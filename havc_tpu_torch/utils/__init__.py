@@ -4,6 +4,7 @@ boundary and the log."""
 from .log import HAVC_LogMessage, HAVCError, MessageType, get_logger  # noqa: F401
 
 from .profiling import (  # noqa: F401
+    device_trace,
     enable_profiling,
     on_device,
     profiling_enabled,

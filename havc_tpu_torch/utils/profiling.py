@@ -11,10 +11,14 @@
 - ``on_device(x, device)`` — frames as a float32 tensor: a tensor stays
   where it lies unless ``device`` names a device, numpy goes to
   ``resolve_device(device)``.
+- ``device_trace(log_dir)`` — ``torch.profiler`` over the CPU and, when
+  there is one, the CUDA device, written to ``log_dir`` as a Chrome trace
+  (``chrome://tracing``, Perfetto, TensorBoard's profile plugin).
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import OrderedDict
 from typing import Optional, Union
@@ -30,6 +34,7 @@ __all__ = [
     "reset_stages",
     "resolve_device",
     "on_device",
+    "device_trace",
 ]
 
 _ENABLED = [False]
@@ -114,3 +119,25 @@ def stage_report() -> str:
             f"{name:<{width}}  {tot:7.3f}  {calls:5d}  {1e3 * tot / max(calls, 1):6.1f}"
         )
     return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, host_tracer_level: Optional[int] = None):
+    """Trace the enclosed work with ``torch.profiler`` (CPU activity, and
+    CUDA kernels when CUDA is available) and write it into ``log_dir`` as
+    a Chrome trace, ``trace_<pid>_<n>.json``.  ``host_tracer_level`` maps
+    jax.profiler's host detail onto the profiler's: 2 or more records the
+    operators' input shapes, 3 their Python stacks; 1 or None neither."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    level = host_tracer_level or 1
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, record_shapes=level >= 2, with_stack=level >= 3) as prof:
+        yield prof
+        if torch.cuda.is_available():  # the queued kernels end inside the trace
+            torch.cuda.synchronize()
+    n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))

@@ -11,6 +11,7 @@ lie far from their bounds on these clips.
 """
 import ast
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -333,3 +334,89 @@ def test_api_signature_parity():
             assert port_defaults.get(k) == v, (name, k)
         if not name.startswith(NO_DEVICE):
             assert port_defaults.get("device") is None and "device" in port_names, name
+
+
+# --- the whole surface, module by module ----------------------------------------------
+
+# public functions and classes of havc_tpu that the port has no counterpart
+# for, as "<module file>:<name>" ("*": the whole module); ROADMAP.md lists
+# the same set under "JAX-only functions that get no counterpart"
+JAX_ONLY = {
+    "utils/jitcache.py:*",  # XLA's compile cache
+    "models/ddcolor.py:init_params", "models/deoldify.py:init_params",
+    "models/remaster.py:init_params", "models/zhang.py:init_params",
+    "models/deepex.py:init_deepex_params",  # flax init; the port seeds its modules
+    "models/layers.py:PtConv", "models/layers.py:PtConvTranspose",
+    "models/layers.py:resize_bilinear", "models/layers.py:leaky_relu",
+    "models/vit.py:torch_bicubic_resize", "models/vit.py:torch_bilinear_resize",
+    "models/colormnet.py:readout",
+    "ops/pallas_kernels.py:*",  # counterpart: ops/post_chain.py
+    "ops/pallas_attn.py:*",  # counterpart: ops/window_attn.py
+}
+# where the signatures are compared as well (name -> skipped JAX parameters)
+SIGNATURE_MODULES = ("models/convert.py", "parallel/mesh.py", "parallel/halo.py")
+SIGNATURE_FUNCTIONS = {"exemplar/__init__.py:colormnet_propagate_scenes": {"device_out"}}
+
+
+def _public_defs(package):
+    """{module file: {public module-level function or class name: node}}."""
+    out = {}
+    root = os.path.join(REPO, package)
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+                tree = ast.parse(open(os.path.join(d, f)).read())
+                out[rel] = {n.name: n for n in tree.body
+                            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                            and not n.name.startswith("_")}
+    return out
+
+
+def _signature(node, skip=()):
+    a = node.args
+    pos = a.posonlyargs + a.args
+    defaults = dict(zip([x.arg for x in pos[len(pos) - len(a.defaults):]], a.defaults))
+    defaults.update({k.arg: d for k, d in zip(a.kwonlyargs, a.kw_defaults) if d is not None})
+    return [(x.arg, ast.unparse(defaults[x.arg]) if x.arg in defaults else None)
+            for x in pos + a.kwonlyargs if x.arg not in skip]
+
+
+def test_every_public_function_has_a_counterpart():
+    """Every public module-level function and class of havc_tpu exists in
+    the same module of the port (defined or imported there), or stands in
+    ``JAX_ONLY``, which holds nothing the port has; ROADMAP.md's JAX-only
+    list is the same set."""
+    import importlib
+
+    missing = set()
+    for mod, names in _public_defs("havc_tpu").items():
+        dotted = "havc_tpu_torch." + mod[:-3].replace("/", ".").removesuffix(".__init__")
+        try:
+            port = importlib.import_module(dotted)
+        except ModuleNotFoundError:
+            missing.add(f"{mod}:*")
+            continue
+        missing |= {f"{mod}:{n}" for n in names if not hasattr(port, n)}
+    assert missing == JAX_ONLY
+    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
+    section = roadmap.split("JAX-only functions that get no counterpart")[1].split("\n#")[0]
+    listed = set(re.findall(r"`([\w/]+\.py:[\w*]+)`", section))
+    assert listed == JAX_ONLY
+
+
+def test_signature_parity_of_this_slice():
+    """``models/convert``, ``parallel/mesh`` and ``parallel/halo`` keep the
+    JAX package's parameter names, order and defaults, and so does
+    ``colormnet_propagate_scenes`` (without ``device_out``: the port
+    returns a tensor on the engine's device)."""
+    jax_defs, port_defs = _public_defs("havc_tpu"), _public_defs("havc_tpu_torch")
+    pairs = [(f"{m}:{n}", node, ()) for m in SIGNATURE_MODULES
+             for n, node in jax_defs[m].items() if isinstance(node, ast.FunctionDef)]
+    for key, skip in SIGNATURE_FUNCTIONS.items():
+        m, n = key.split(":")
+        pairs.append((key, jax_defs[m][n], skip))
+    assert len(pairs) == 24 + 6 + 2 + 1
+    for key, jnode, skip in pairs:
+        m, n = key.split(":")
+        assert _signature(port_defs[m][n]) == _signature(jnode, skip), key

@@ -419,9 +419,3 @@ def test_deepex_propagate(trees, net, net64, jcache, monkeypatch, kw):
         floor_check(want, exact, got, f"deepex_propagate {kw}")
     else:
         assert np.mean(diff > 1e-4) <= 0.02
-
-
-def test_deepex_propagate_mesh_names_item_18(net):
-    gray, refs, is_ref = scene_inputs()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tex.deepex_propagate(PortDeepEx(net), gray, refs, is_ref, mesh=object())

@@ -245,6 +245,8 @@ def test_port_imports_neither_jax_nor_havc_tpu():
         "        'havc_tpu_torch.ops.fgs']\n"
         "new += ['havc_tpu_torch.' + m for m in ('scene.edges', 'scene.motion', 'ops.overlay',\n"
         "        'ops.denoise', 'io.native', 'io.formats', 'metrics', 'utils.log')]\n"
+        "new += ['havc_tpu_torch.' + m for m in ('parallel', 'parallel.mesh', 'parallel.halo',\n"
+        "        'models.convert')]\n"
         "missing = [n for n in new if n not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok', len([n for n in sys.modules if n.startswith('havc_tpu_torch')]))\n"

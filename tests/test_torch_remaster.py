@@ -203,12 +203,6 @@ def test_window_schedule_advances():
     assert tex._remaster_window_starts(7, 2, 4, 5, pos[3:], 0.5, 6) == [0, 1, 1, 1]
 
 
-def test_remaster_propagate_mesh_names_item_18(remaster_both):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tex.remaster_propagate(tex.RemasterEngine(device="cpu"), rand((2, 32, 48, 3), 1),
-                               rand((1, 32, 48, 3), 2), mesh=object())
-
-
 # --- HAVC_DeepRemaster ----------------------------------------------------------------
 
 
