@@ -7,7 +7,11 @@ per source, started together), then runs these phases, each printing one
 JSON line; any failure exits non-zero:
 
 1. ``device``: the card's name and power limit, torch/CUDA versions; TF32
-   is switched off for matmuls and cuDNN (the JAX package computes in f32).
+   is switched off for matmuls and cuDNN (float32 engines compute in f32,
+   as the JAX package's do).  ColorMNet and DeepRemaster run at the card's
+   default precision, bf16, on every path below (each phase fails when a
+   float32 engine or window attention's float32 instantiation runs there);
+   phase 31 runs them at float32 too.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at its path's shape and at ragged, misaligned and odd ones, with
    CUDA-event timings (median of 10 batches of 20 calls) beside the card's
@@ -15,7 +19,10 @@ JSON line; any failure exits non-zero:
    call's time; window attention's two launches (weights, weighted sum)
    also timed apart; the post chain's range-limited forms checked over
    every float of their ranges; window attention also at the
-   scene-batched scan's B = 6.  The ``build`` line before it gives each
+   scene-batched scan's B = 6, and its bf16 instantiation on bf16 inputs
+   (the path shape, B = 6, the scalar paths) against the plain version on
+   the same bf16 values, with ``scaled_dot_product_attention`` on them.
+   The ``build`` line before it gives each
    kernel function's registers, stack, spills and static shared memory
    (``-Xptxas -v``) and its SASS instruction count (``cuobjdump``).
 3. ``main_path``: ``havc_tpu_torch.HAVC_main(clip)`` with its defaults on a
@@ -37,7 +44,9 @@ JSON line; any failure exits non-zero:
    (``torch.cuda.set_sync_debug_mode`` counts the host syncs).
 7. ``parity_cpu_gpu`` (after phase 16): the test-sized main path and
    exemplar path (tiny models, render factor 4) with ``device="cpu"`` and
-   on CUDA; max abs <= 1e-4.
+   on CUDA; max abs <= 1e-4 where no ColorMNet or NetworkC runs, else
+   ``BF16_RGB`` (bf16 on the card against float32 on the CPU, by the
+   share of moved values).
 8. ``streaming``: ``HAVC_main_streaming`` with its defaults (Medium,
    constrained-chroma, batch 8, chunk 64) and the full-width engines on a
    seeded 136-frame 1080x1920 gray ``.y4m`` (written to a temporary
@@ -173,6 +182,15 @@ JSON line; any failure exits non-zero:
     weight-normed) converted by ``python -m havc_tpu_torch.models.convert``,
     loaded through ``engines.set_weights_dir`` on the card, one 8x384x384
     batch colorized: times, converted tensors, the output's checksum.
+31. ``exemplar_f32_vs_bf16`` (after phase 22): ``ColorMNetEngine`` and
+    ``RemasterEngine`` with ``dtype=torch.float32`` on the card against
+    the CPU at test size within 1e-4, the default bf16 engines' distance
+    from the CPU (``BF16_AB``, ``BF16_RGB``); then the exemplar path, the
+    scene-batched ``HAVC_deepex``, ``HAVC_DeepRemaster`` and the ColorMNet
+    restore stream at full width with the default engines and with float32
+    ones, in turns: wall times and fps of both, launches of each window
+    attention instantiation, 0 host syncs in the scans at bf16, the bf16
+    output's distance from the float32 one.
 Each of 14-21 prints the wall time of a second call, fps, peak device
 memory, the stage times of a third call (18-22 name ``deepex_vgg``,
 ``deepex_warp``, ``deepex_colorvid``, ``deepex_wls``,
@@ -186,10 +204,14 @@ the encode mode 2 for 17), CLAHE on a 1080x1920 plane (1e-5), tuned
 streaming (within 1 code), and the paths of 18-21 at 6x48x64 with
 Deep-Exemplar and NetworkC at full width and their work sizes cut to
 40x64 and 32x48 (DeepEx runs a hard argmax and ``HAVC_main`` a hue
-threshold: at most 2 % of the values more than 1e-4 apart; DeepRemaster
-1e-4).  Each kernel's ``launches_by_path`` gives its
-launches on every path driven (counts zeroed just before each path and
-read just after; ``exemplar_sources`` sums its three calls).
+threshold: at most 2 % of the values more than 1e-4 apart; the hybrid and
+DeepRemaster, bf16 on the card, ``BF16_RGB``).  Each kernel's
+``launches_by_path`` gives its launches on every path driven (counts
+zeroed just before each path and read just after; ``exemplar_sources``
+sums its three calls); window attention's two instantiations are two
+rows, ``window_attn`` (float32 inputs, its ``launches`` from phase 31's
+float32 exemplar path) and ``window_attn_bf16`` (its ``launches`` from
+the exemplar path).
 
 Then the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the result line.  Without CUDA, or without the
@@ -216,6 +238,16 @@ H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 H100_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_TOL = 1e-5
 PARITY_TOL = 1e-4
+# ColorMNet and DeepRemaster run bf16 on the card by default and float32 on
+# the CPU: their CPU <-> card comparisons, and those of two bf16 runs that
+# batch differently, are held per value: at most `moved_share` of the
+# values more than `over` apart, a mean distance of at most `mean_abs`,
+# none more than `max_abs`; about twice what the CPU's own bf16 gives
+# against its float32 on these paths (tiny engines at test size): on RGB
+# in [0, 1] up to 14 % of the values more than 0.01 apart, mean 0.0046,
+# max 0.13; on ColorMNet's ab in [-1, 1] 39 %, mean 0.0093, max 0.042.
+BF16_RGB = dict(over=1e-2, moved_share=0.25, mean_abs=1e-2, max_abs=0.3)
+BF16_AB = dict(over=1e-2, moved_share=0.6, mean_abs=2e-2, max_abs=0.1)
 MAIN_SHAPE = (24, 1080, 1920)
 WORK_SHAPE = (24, 384, 384, 3)  # the stabilizer's work clip at 1080p
 WORK_SHAPE_RF32 = (24, 512, 512, 3)  # Placebo / VerySlow: render factor 32
@@ -247,14 +279,23 @@ def smi_max_sm_clock_hz() -> float:
     return float(res.stdout.strip().splitlines()[0]) * 1e6
 
 
+TEMPLATE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
 def short_name(mangled: str) -> str:
-    """``_Z26window_attn_weights_kernelILi4EEv...`` -> ``window_attn_weights_kernel<4>``."""
+    """``_Z26window_attn_weights_kernelIfLi4EEv...`` ->
+    ``window_attn_weights_kernel<float,4>`` (type and integer template
+    arguments)."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
     name = mangled[m.end():m.end() + int(m.group(1))]
-    t = re.match(r"ILi(\d+)EE", mangled[m.end() + int(m.group(1)):])
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", mangled[m.end() + int(m.group(1)):])
+    if not t:
+        return name
+    args = [TEMPLATE_ARGS.get(a) or a[2:-1]
+            for a in re.findall(r"f|13__nv_bfloat16|Li\d+E", t.group(1))]
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_report(log: str) -> dict:
@@ -386,12 +427,12 @@ def window_pairs(h: int, w: int) -> int:
     return along(h) * along(w)
 
 
-def window_attn_inputs(b, h, w, d_qk, d_vu, seed):
+def window_attn_inputs(b, h, w, d_qk, d_vu, seed, dtype=torch.float32):
     """q, k, v at 0.3 and rel at 0.1 standard deviations, seeded with numpy
-    as the JAX package's kernel test seeds them."""
+    as the JAX package's kernel test seeds them, in ``dtype``."""
     rng = np.random.default_rng(seed)
     mk = lambda c, sd: torch.from_numpy(  # noqa: E731
-        (rng.standard_normal((b, h, w, c)) * sd).astype(np.float32)).cuda()
+        (rng.standard_normal((b, h, w, c)) * sd).astype(np.float32)).cuda().to(dtype)
     return mk(d_qk, 0.3), mk(d_qk, 0.3), mk(d_vu, 0.3), mk(WIN * WIN, 0.1)
 
 
@@ -412,21 +453,34 @@ def window_sdpa_mask(rel):
     return torch.where(inside[None], vals, -torch.inf)[:, None]
 
 
-def phase_window_attn(wa, card: str) -> dict:
+def phase_window_attn(wa, card: str) -> list:
+    """Both instantiations against the plain version on the same inputs
+    (bf16 ones: the plain version upcasts the same bf16 values, so the
+    float32 tolerance holds).  Returns the summary rows of the float32
+    and the bf16 instantiation (the path shape's numbers)."""
     import torch.nn.functional as F
 
     # path, batch 4, a width that is not a multiple of the 4-pixel tile,
     # channel counts that take the kernels' 4-byte paths, the odd test
-    # shape, and the scene-batched scan's B = S (six scenes)
-    cases = [("path", (1, 14, 28, 64, 1024), 0), ("batched", (4, 14, 28, 64, 1024), 1),
-             ("ragged", (1, 14, 27, 64, 1024), 2), ("scalar", (2, 5, 11, 6, 10), 3),
-             ("odd", (2, 6, 9, 16, 32), 0), ("scene_batch", (SCENE_S, 14, 28, 64, 1024), 4)]
-    rows, worst, main = [], 0.0, None
-    for name, (b, h, w, d_qk, d_vu), seed in cases:
-        q, k, v, rel = window_attn_inputs(b, h, w, d_qk, d_vu, seed)
+    # shape, and the scene-batched scan's B = S (six scenes); on bf16
+    # inputs the path, the scene batch and the 2-byte scalar paths
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = [("path", (1, 14, 28, 64, 1024), 0, f32), ("batched", (4, 14, 28, 64, 1024), 1, f32),
+             ("ragged", (1, 14, 27, 64, 1024), 2, f32), ("scalar", (2, 5, 11, 6, 10), 3, f32),
+             ("odd", (2, 6, 9, 16, 32), 0, f32),
+             ("scene_batch", (SCENE_S, 14, 28, 64, 1024), 4, f32),
+             ("path_bf16", (1, 14, 28, 64, 1024), 0, b16),
+             ("scene_batch_bf16", (SCENE_S, 14, 28, 64, 1024), 4, b16),
+             ("scalar_bf16", (2, 5, 11, 6, 10), 3, b16)]
+    rows, worst, main = [], {f32: 0.0, b16: 0.0}, {}
+    for name, (b, h, w, d_qk, d_vu), seed, dtype in cases:
+        q, k, v, rel = window_attn_inputs(b, h, w, d_qk, d_vu, seed, dtype)
+        before = wa.window_attn_cuda.launches_bf16
         got = wa.window_attn_cuda(q, k, v, rel)
+        if wa.window_attn_cuda.launches_bf16 - before != (dtype == b16):
+            fail(f"window_attn {name}: the {dtype} inputs did not reach their instantiation")
         want = wa.window_attn_reference(q, k, v, rel)
-        mask = window_sdpa_mask(rel)
+        mask = window_sdpa_mask(rel).to(dtype)
 
         def sdpa():
             flat = lambda t: t.reshape(b, 1, h * w, t.shape[-1])  # noqa: E731
@@ -436,8 +490,9 @@ def phase_window_attn(wa, card: str) -> dict:
         lib = sdpa().reshape(b, h, w, d_vu)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        worst = max(worst, err)
-        n_bytes = 4 * b * h * w * (2 * d_qk + WIN * WIN + 2 * d_vu)
+        worst[dtype] = max(worst[dtype], err)
+        # each input read once in its type, the float32 output written once
+        n_bytes = b * h * w * (q.element_size() * (2 * d_qk + WIN * WIN + d_vu) + 4 * d_vu)
         ops = b * window_pairs(h, w) * (2 * d_qk + 2 * d_vu)
         bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
         wts, out = wa.scratch(q, WIN // 2), torch.empty_like(got)
@@ -445,8 +500,8 @@ def phase_window_attn(wa, card: str) -> dict:
         def half(stages):  # one of the two launches alone
             return lambda: wa.launch_stages(q, k, v, rel, wts, out, WIN // 2, stages)
 
-        row = dict(case=name, shape=[b, h, w, d_qk, d_vu], max_abs_err=err,
-                   library_max_abs_err=(lib - want).abs().max().item(),
+        row = dict(case=name, shape=[b, h, w, d_qk, d_vu], dtype=str(dtype), max_abs_err=err,
+                   library_max_abs_err=(lib.float() - want).abs().max().item(),
                    kernel_ms=cuda_ms(lambda: wa.window_attn_cuda(q, k, v, rel)),
                    weights_ms=cuda_ms(half(1)), weighted_sum_ms=cuda_ms(half(2)),
                    plain_ms=cuda_ms(lambda: wa.window_attn_reference(q, k, v, rel)),
@@ -454,21 +509,24 @@ def phase_window_attn(wa, card: str) -> dict:
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         rows.append(row)
-        if name == "path":
-            main = row
+        if name.startswith("path"):
+            main[dtype] = row
         if err > KERNEL_TOL:
             emit(dict(phase="kernels", name="window_attn", cases=rows))
             fail(f"window_attn {name}: max abs err {err} > {KERNEL_TOL}")
     emit(dict(phase="kernels", name="window_attn", card=card, tol=KERNEL_TOL, cases=rows,
               note="library_ms: one scaled_dot_product_attention over all keys under the "
-                   "dense window mask (mask built outside the timing); weights_ms and "
-                   "weighted_sum_ms: each of the two launches alone (kernel_ms runs them as "
-                   "one call, the second starting while the first runs)"))
-    return dict(name="window_attn", route="cuda", source="havc_tpu_torch/csrc/window_attn.cu",
-                replaces="havc_tpu/ops/pallas_attn.py:107", launches=None,
-                max_abs_err=worst, ms=main["kernel_ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"])
+                   "dense window mask (mask built outside the timing), on the same inputs "
+                   "(bf16 cases: bf16 in and out); weights_ms and weighted_sum_ms: each of "
+                   "the two launches alone (kernel_ms runs them as one call, the second "
+                   "starting while the first runs); bytes: inputs in their type, the output "
+                   "in float32; ops: the same float32 math on both"))
+    return [dict(name=n, route="cuda", source="havc_tpu_torch/csrc/window_attn.cu",
+                 replaces="havc_tpu/ops/pallas_attn.py:107", launches=None,
+                 max_abs_err=worst[dtype], ms=main[dtype]["kernel_ms"],
+                 plain_ms=main[dtype]["plain_ms"], bound_ms=main[dtype]["bound_ms"],
+                 bound_by=main[dtype]["bound_by"], library_ms=main[dtype]["library_ms"])
+            for n, dtype in (("window_attn", f32), ("window_attn_bf16", b16))]
 
 
 # --- phase 3: the main path at full width -------------------------------------------
@@ -646,10 +704,15 @@ def phase_bw_tune_memory(ht, card: str) -> None:
 
 def zero_launches(pc, wa) -> None:
     pc.post_chain_cuda.launches = wa.window_attn_cuda.launches = 0
+    wa.window_attn_cuda.launches_bf16 = 0
 
 
 def read_launches(pc, wa) -> dict:
-    return dict(post_chain=pc.post_chain_cuda.launches, window_attn=wa.window_attn_cuda.launches)
+    """Calls of each kernel since ``zero_launches``; window attention by
+    instantiation (``window_attn``: float32 inputs, ``window_attn_bf16``)."""
+    bf16 = wa.window_attn_cuda.launches_bf16
+    return dict(post_chain=pc.post_chain_cuda.launches,
+                window_attn=wa.window_attn_cuda.launches - bf16, window_attn_bf16=bf16)
 
 
 def phase_classic_path(ht, pc, wa, card: str, name: str, kw: dict, want_post_chain: int):
@@ -813,7 +876,7 @@ def phase_exemplar_path(ht, pc, wa, card: str):
     out = run()
     wall_s = time.perf_counter() - t0
     by_kernel = read_launches(pc, wa)
-    launches = by_kernel["window_attn"]
+    launches = by_kernel["window_attn_bf16"]
     peak = torch.cuda.max_memory_allocated()
 
     enable_profiling(True)
@@ -828,7 +891,8 @@ def phase_exemplar_path(ht, pc, wa, card: str):
     eng = engines[0] if engines else None
     vit = eng.net.key_encoder.network2.backbone if eng else None
     geometry = dict(key_dim=eng.key_dim, value_dim=eng.value_dim, dino_dim=vit.dim,
-                    dino_depth=vit.depth, work=[eng.h, eng.w]) if eng else None
+                    dino_depth=vit.depth, work=[eng.h, eng.w], dtype=str(eng.dtype)) \
+        if eng else None
     n_params = sum(p.numel() for p in eng.net.parameters()) if eng else 0
     cuts = np.nonzero(out.sc.sc_prev)[0].tolist() if out.sc is not None else None
     f = out.frames
@@ -838,7 +902,8 @@ def phase_exemplar_path(ht, pc, wa, card: str):
     emit(dict(phase="exemplar_path", card=card, clip=list(MAIN_SHAPE) + [3], scene_cuts=cuts,
               engine=geometry, params_colormnet=n_params, first_call_s=first_s, wall_s=wall_s,
               fps=MAIN_SHAPE[0] / wall_s, profiled_wall_s=profiled_s, stages_s=stages,
-              max_memory_allocated=peak, window_attn_launches=launches, out_min=lo,
+              max_memory_allocated=peak, window_attn_calls=launches,
+              window_attn_f32_calls=by_kernel["window_attn"], out_min=lo,
               out_max=hi, mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item()))
     if cuts != EX_CUTS:
         fail(f"exemplar_path: scene cuts {cuts} != {EX_CUTS}")
@@ -850,9 +915,12 @@ def phase_exemplar_path(ht, pc, wa, card: str):
              f"shape {MAIN_SHAPE + (3,)}")
     if not finite or lo < 0.0 or hi > 1.0:
         fail(f"exemplar_path: output not finite in [0,1] (finite={finite}, min={lo}, max={hi})")
-    if launches < MAIN_SHAPE[0] - len(EX_CUTS):
-        fail(f"exemplar_path: window attention launched {launches} times, expected at least "
-             f"{MAIN_SHAPE[0] - len(EX_CUTS)}")
+    if launches < MAIN_SHAPE[0] - len(EX_CUTS) or by_kernel["window_attn"]:
+        fail(f"exemplar_path: window attention ran {launches} times on bf16 inputs (expected "
+             f"at least {MAIN_SHAPE[0] - len(EX_CUTS)}) and {by_kernel['window_attn']} on "
+             f"float32 ones (expected none: the card's default is bf16)")
+    if geometry["dtype"] != str(torch.bfloat16):
+        fail(f"exemplar_path: the ColorMNet engine runs {geometry['dtype']}, not bf16")
     return by_kernel, run, wall_s
 
 
@@ -936,11 +1004,12 @@ def tinted(gray: torch.Tensor, per: int) -> torch.Tensor:
 class LoopSyncs:
     """While active: the host syncs PyTorch reports inside every call of
     the exemplar propagations ``names`` (ColorMNet's: the batched key
-    encoder and the frame loop), summed over the calls and per name."""
+    encoder and the frame loop), summed over the calls and per name, and
+    the dtypes of the engines they ran (``dtypes``)."""
 
     def __init__(self, exemplar, names=("colormnet_propagate",)):
         self.ex, self.names, self.calls, self.syncs, self.sites = exemplar, names, 0, 0, []
-        self.by_name = {n: dict(calls=0, host_syncs=0) for n in names}
+        self.by_name = {n: dict(calls=0, host_syncs=0, dtypes=[]) for n in names}
 
     def __enter__(self):
         self.real = {n: getattr(self.ex, n) for n in self.names}
@@ -950,6 +1019,9 @@ class LoopSyncs:
                 self.calls, self.syncs = self.calls + 1, self.syncs + n
                 self.by_name[_name]["calls"] += 1
                 self.by_name[_name]["host_syncs"] += n
+                dtype = getattr(a[0] if a else kw.get("engine"), "dtype", None)
+                if dtype is not None and str(dtype) not in self.by_name[_name]["dtypes"]:
+                    self.by_name[_name]["dtypes"].append(str(dtype))
                 self.sites += sites
                 return out
 
@@ -959,6 +1031,10 @@ class LoopSyncs:
     def __exit__(self, *exc):
         for name, real in self.real.items():
             setattr(self.ex, name, real)
+
+    def float32_engines(self) -> list:
+        """The propagations that ran a float32 ColorMNet or NetworkC."""
+        return [n for n, r in self.by_name.items() if str(torch.float32) in r["dtypes"]]
 
 
 def drive_exemplar_path(ht, pc, wa, card: str, name: str, run, frames_n: int,
@@ -991,9 +1067,10 @@ def drive_exemplar_path(ht, pc, wa, card: str, name: str, run, frames_n: int,
     row = dict(phase=name, card=card, clip=list(f.shape), first_call_s=first_s, wall_s=wall_s,
                fps=frames_n / wall_s, stage_timed_wall_s=stage_timed_s, stages_s=stages,
                max_memory_allocated=peak, launches=launches,
-               window_attn_calls=launches["window_attn"],
-               window_attn_launches=2 * launches["window_attn"],
+               window_attn_calls=launches["window_attn_bf16"],
+               window_attn_launches=2 * launches["window_attn_bf16"],
                post_chain_launches=launches["post_chain"], propagate_calls=loop.calls,
+               propagate=loop.by_name,
                loop_host_syncs=loop.syncs, loop_sync_sites=loop.sites[:6],
                colormnet_full=bool(engines), out_min=lo, out_max=hi,
                mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item())
@@ -1004,8 +1081,10 @@ def drive_exemplar_path(ht, pc, wa, card: str, name: str, run, frames_n: int,
         fail(f"{name}: output not finite in [0,1] (finite={finite}, min={lo}, max={hi})")
     if not engines or loop.calls < 1:
         fail(f"{name}: the full ColorMNet did not run ({loop.calls} propagations)")
-    if launches["window_attn"] < 1:
-        fail(f"{name}: the window-attention kernel was not launched")
+    if launches["window_attn_bf16"] < 1 or launches["window_attn"] or loop.float32_engines():
+        fail(f"{name}: window attention ran {launches['window_attn_bf16']} times on bf16 and "
+             f"{launches['window_attn']} on float32 inputs, float32 engines in "
+             f"{loop.float32_engines()}: the card's default is bf16")
     if want_post_chain is not None and launches["post_chain"] != want_post_chain:
         fail(f"{name}: the post-chain kernel ran {launches['post_chain']} times, expected "
              f"{want_post_chain}")
@@ -1094,7 +1173,7 @@ def phase_exemplar_sources(ht, pc, wa, card: str, tmp: str) -> dict:
         "method3_directory": dict(DeepExMethod=3, ScFrameDir=refdir),
         "encode_mode2": dict(DeepExEncMode=2, ScMinFreq=3),
     }
-    total = dict(post_chain=0, window_attn=0)
+    total = dict(post_chain=0, window_attn=0, window_attn_bf16=0)
     rows = {}
     for call, kw in calls.items():
         def run(kw=kw):
@@ -1229,8 +1308,8 @@ def drive_engine_path(ht, pc, wa, card: str, name: str, run, frames_n: int, want
                fps=frames_n / wall_s, stage_timed_wall_s=stage_timed_s, stages_s=stages,
                engine_stages_s={k: stages[k] for k in ENGINE_STAGES if k in stages},
                max_memory_allocated=peak, params=params, launches=launches,
-               window_attn_calls=launches["window_attn"],
-               window_attn_launches=2 * launches["window_attn"],
+               window_attn_calls=launches["window_attn_bf16"],
+               window_attn_launches=2 * launches["window_attn_bf16"],
                post_chain_launches=launches["post_chain"], propagate=loop.by_name,
                propagate_host_syncs=loop.syncs, sync_sites=loop.sites[:6], out_min=lo,
                out_max=hi, mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item())
@@ -1250,8 +1329,11 @@ def drive_engine_path(ht, pc, wa, card: str, name: str, run, frames_n: int, want
     if loop.syncs:
         fail(f"{name}: the propagation loops waited for the card {loop.syncs} times: "
              f"{loop.sites[:6]}")
-    if (launches["window_attn"] > 0) != want_window_attn:
-        fail(f"{name}: window attention launched {launches['window_attn']} times")
+    if (launches["window_attn_bf16"] > 0) != want_window_attn or launches["window_attn"] or \
+            loop.float32_engines():
+        fail(f"{name}: window attention ran {launches['window_attn_bf16']} times on bf16 and "
+             f"{launches['window_attn']} on float32 inputs, float32 engines in "
+             f"{loop.float32_engines()}: the card's default is bf16")
     if launches["post_chain"] != want_post_chain:
         fail(f"{name}: the post-chain kernel ran {launches['post_chain']} times, expected "
              f"{want_post_chain}")
@@ -1414,16 +1496,23 @@ def phase_parity(ht) -> None:
                      ht.Clip(frames=two.copy()), ht.Clip(frames=colored.copy()), method=5,
                      ref_merge=2, batch_size=4, device=dev)),
                  ("exemplar_sources/encode_mode2", allrefs)]
+        # every path but the first three runs ColorMNet: bf16 on the card
         for name, run in cases:
             out_cpu = run("cpu").frames
             out_gpu = run(None).frames
             out_gpu = out_gpu.cpu().numpy() if isinstance(out_gpu, torch.Tensor) else out_gpu
             out_cpu = out_cpu.numpy() if isinstance(out_cpu, torch.Tensor) else out_cpu
             err = float(np.abs(out_cpu - out_gpu).max())
+            bf16 = name not in ("main_path", "placebo", "veryslow")
+            d = moved(out_cpu, out_gpu, BF16_RGB["over"])
             emit(dict(phase="parity_cpu_gpu", path=name, clip=list(out_gpu.shape),
-                      max_abs_err=err, tol=PARITY_TOL,
+                      max_abs_err=err, card_bf16=bf16, **({"moved": d, "tol": BF16_RGB}
+                                                          if bf16 else {"tol": PARITY_TOL}),
                       mean_abs_chroma=float(np.abs(out_gpu - out_gpu.mean(-1, keepdims=True)).mean())))
-            if not err <= PARITY_TOL:
+            if bf16 and not within(d, BF16_RGB):
+                fail(f"parity_cpu_gpu {name}: card bf16 against CPU float32 {d} "
+                     f"(tol {BF16_RGB})")
+            if not bf16 and not err <= PARITY_TOL:
                 fail(f"parity_cpu_gpu {name}: max abs err {err} > {PARITY_TOL}")
     finally:
         engines.registry._cache.clear()
@@ -1470,8 +1559,10 @@ def phase_engine_parity(ht) -> None:
     40x64 and 32x48) with ``device="cpu"`` and on the card.  DeepEx runs
     at temperature 1e-10, a hard argmax, and ``HAVC_main`` ends in the
     colormap's hue thresholds: those paths are held by the share of moved
-    values (at most 2 % more than 1e-4 apart, none more than 0.02);
-    DeepRemaster within 1e-4."""
+    values (at most 2 % more than 1e-4 apart, none more than 0.02); the
+    hybrid and DeepRemaster, whose ColorMNet and NetworkC run bf16 on the
+    card, by ``BF16_RGB`` (their float32 engines on the card are held to
+    the CPU within 1e-4 by ``phase_exemplar_f32_vs_bf16``)."""
     from havc_tpu_torch import engines, exemplar
 
     cpu, gpu = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
@@ -1494,29 +1585,33 @@ def phase_engine_parity(ht) -> None:
             return lambda dev: ht.HAVC_main(ht.Clip(frames=two.copy()), batch_size=4,
                                             device=dev, **kw)
 
-        cases = [("deepex_path", main(EnableDeepEx=True, DeepExModel=1), True),
-                 ("hybrid_path", main(EnableDeepEx=True, DeepExModel=3), True),
+        # rule: "binned" for the argmax paths, "bf16" where ColorMNet or
+        # NetworkC runs (bf16 on the card)
+        cases = [("deepex_path", main(EnableDeepEx=True, DeepExModel=1), "binned"),
+                 ("hybrid_path", main(EnableDeepEx=True, DeepExModel=3), "bf16"),
                  ("remaster_path", lambda dev: ht.HAVC_DeepRemaster(
                      ht.Clip(frames=two.copy()), clip_ref=ht.Clip(frames=colored.copy()),
-                     device=dev), False),
-                 ("frameinterp_deepex_path", main(FrameInterp=2), True)]
-        for name, run, binned in cases:
+                     device=dev), "bf16"),
+                 ("frameinterp_deepex_path", main(FrameInterp=2), "binned")]
+        for name, run, rule in cases:
             out_cpu = run("cpu").frames
             out_gpu = run(None).frames
             out_gpu = out_gpu.cpu().numpy() if isinstance(out_gpu, torch.Tensor) else out_gpu
             out_cpu = out_cpu.numpy() if isinstance(out_cpu, torch.Tensor) else out_cpu
             d = np.abs(out_cpu - out_gpu)
             err, share = float(d.max()), float(np.mean(d > PARITY_TOL))
+            bf16 = moved(out_cpu, out_gpu, BF16_RGB["over"])
             emit(dict(phase="parity_cpu_gpu", path=name, clip=list(out_gpu.shape),
-                      max_abs_err=err, share_over_tol=share, tol=PARITY_TOL,
-                      tol_rule="share <= 0.02, max <= 0.02" if binned else "max",
+                      max_abs_err=err, share_over_tol=share, tol=PARITY_TOL, moved=bf16,
+                      tol_rule={"binned": "share <= 0.02, max <= 0.02", "bf16": BF16_RGB}[rule],
                       mean_abs_chroma=float(np.abs(out_gpu - out_gpu.mean(-1, keepdims=True))
                                             .mean())))
-            if binned and not (share <= 0.02 and err <= 0.02):
+            if rule == "binned" and not (share <= 0.02 and err <= 0.02):
                 fail(f"parity_cpu_gpu {name}: {share:.4%} of values over {PARITY_TOL}, "
                      f"max {err}")
-            if not binned and not err <= PARITY_TOL:
-                fail(f"parity_cpu_gpu {name}: max abs err {err} > {PARITY_TOL}")
+            if rule == "bf16" and not within(bf16, BF16_RGB):
+                fail(f"parity_cpu_gpu {name}: card bf16 against CPU float32 {bf16} "
+                     f"(tol {BF16_RGB})")
     finally:
         engines.registry._cache.clear()
         engines.registry._cache.update(saved)
@@ -2307,7 +2402,7 @@ def phase_restore_streaming(pc, wa, card: str, tmp: str):
     torch.cuda.reset_peak_memory_stats()
     (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
     by_kernel = read_launches(pc, wa)
-    launches = by_kernel["window_attn"]
+    launches = by_kernel["window_attn_bf16"]
     peak = torch.cuda.max_memory_allocated()
     transfer = streaming.last_transfer()
 
@@ -2325,6 +2420,7 @@ def phase_restore_streaming(pc, wa, card: str, tmp: str):
               first_call_s=first_s, frames=n, wall_s=wall_s, fps=n / wall_s, transfer=transfer,
               host_syncs=sync_n, sync_sites=sync_sites, chunks=-(-RESTORE_T // 16),
               max_memory_allocated=peak, window_attn_calls=launches,
+              window_attn_f32_calls=by_kernel["window_attn"],
               window_attn_launches=2 * launches, chunk48_s=wall48_s,
               chunk16_vs_48_max_code_diff=int(diff.max()),
               chunk16_vs_48_unequal_share=float(np.mean(diff > 0)),
@@ -2336,8 +2432,9 @@ def phase_restore_streaming(pc, wa, card: str, tmp: str):
         fail(f"restore_streaming: scene cuts {cuts} != {RESTORE_CUTS}")
     if transfer != "gray+uv420" or tuple(uv16.shape) != (RESTORE_T, h // 2, w):
         fail(f"restore_streaming: transfer {transfer}, retired shape {uv16.shape}")
-    if launches < RESTORE_T:
-        fail(f"restore_streaming: window attention ran {launches} times, expected {RESTORE_T}")
+    if launches < RESTORE_T or by_kernel["window_attn"]:
+        fail(f"restore_streaming: window attention ran {launches} times on bf16 inputs "
+             f"(expected {RESTORE_T}) and {by_kernel['window_attn']} on float32 ones")
     if diff.max() > 1:
         fail(f"restore_streaming: chunk 16 and chunk 48 differ by {diff.max()} codes")
     if chroma_stats(uv16)["mean_abs_uv_minus_128"] <= 1.0:
@@ -2357,7 +2454,7 @@ def phase_restore_streaming_engines(pc, wa, card: str, tmp: str) -> dict:
 
     src, ref = f"{tmp}/restore_gray.y4m", f"{tmp}/restore_ref.y4m"
     h, w = MAIN_SHAPE[1:]
-    total = dict(post_chain=0, window_attn=0)
+    total = dict(post_chain=0, window_attn=0, window_attn_bf16=0)
     for ex_model, prop in ((1, "deepex_propagate"), (2, "remaster_propagate")):
         name = f"restore_streaming/ex_model{ex_model}"
 
@@ -2396,9 +2493,9 @@ def phase_restore_streaming_engines(pc, wa, card: str, tmp: str) -> dict:
             fail(f"{name}: frames written {first_n}, {n}, {n48} != {RESTORE_T}")
         if tuple(uv16.shape) != (RESTORE_T, h // 2, w) or diff.max() > 1:
             fail(f"{name}: retired {uv16.shape}; chunk 16 and 48 differ by {diff.max()} codes")
-        if loop.by_name[prop]["calls"] < 1 or loop.syncs:
+        if loop.by_name[prop]["calls"] < 1 or loop.syncs or loop.float32_engines():
             fail(f"{name}: {prop} ran {loop.by_name[prop]['calls']} times with "
-                 f"{loop.syncs} host syncs inside")
+                 f"{loop.syncs} host syncs inside, float32 engines in {loop.float32_engines()}")
         # seeded NetworkC's sigmoid sits near 0.5: its ab stays within a few
         # units of neutral, so DeepRemaster's least chroma is lower
         if chroma_stats(uv16)["mean_abs_uv_minus_128"] <= (1.0 if ex_model == 1 else 0.25):
@@ -2406,17 +2503,195 @@ def phase_restore_streaming_engines(pc, wa, card: str, tmp: str) -> dict:
     return total
 
 
+# --- phase 31: the exemplar engines at float32 and at bf16 -------------------------------
+
+class Precision:
+    """Inside: the exemplar engines built with ``dtype=None`` get ``dtype``
+    instead of the card's bf16, from an engine cache of that precision's
+    own (kept between blocks, so each precision builds its engines once)."""
+
+    caches: dict = {}
+
+    def __init__(self, exemplar, dtype):
+        self.ex, self.dtype = exemplar, dtype
+
+    def __enter__(self):
+        self.saved = (self.ex._engine_dtype, self.ex._ENGINE_CACHE)
+        self.ex._ENGINE_CACHE = Precision.caches.setdefault(self.dtype, {})
+        self.ex._engine_dtype = lambda d, device, _t=self.dtype: _t if d is None else d
+        return self
+
+    def __exit__(self, *exc):
+        self.ex._engine_dtype, self.ex._ENGINE_CACHE = self.saved
+
+
+def f32_vs_bf16_test_size(card: str) -> dict:
+    """ColorMNet (micro, exemplar and propagate modes) and NetworkC (full
+    width at 32x48) at test size from engines made on the host and copied
+    to both devices: ``dtype=torch.float32`` engines on the card against
+    the CPU's within PARITY_TOL, the default (bf16) engines' distance from
+    the CPU's within BF16_AB (ColorMNet's ab) and BF16_RGB (NetworkC's
+    RGB)."""
+    from havc_tpu_torch import engines, exemplar
+    from havc_tpu_torch.ops.colorspace import rgb_to_lab
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
+    saved = dict(engines.registry._cache)
+    engines.registry._cache.update(tiny_engines([cpu, gpu]))
+    engines.registry._cache.update(engine_nets([cpu, gpu]))
+    out = {}
+    try:
+        two = torch.from_numpy(two_scene_clip())
+        colored = tinted(two, 3)
+        ref_ab = torch.clamp(rgb_to_lab(colored)[..., 1:3] / 110.0, -1.0, 1.0)
+        is_ref = np.array([1, 0, 0, 1, 0, 0], bool)
+        work = exemplar.pad112_geometry(*two.shape[1:3])[:2]
+        rh, rw = REMASTER_WORK
+        rmf = torch.from_numpy(np.stack(list(smooth_frames(6, 3, 21, rh, rw))))
+        rmf = rmf[..., None].expand(-1, -1, -1, 3).contiguous()
+        rm_refs = tinted(rmf, 2)
+
+        def colormnet(frame_propagate):
+            def run(**kw):
+                eng = exemplar.ColorMNetEngine(config="micro", work_size=work, **kw)
+                return eng.dtype, exemplar.colormnet_propagate(
+                    eng, two.to(eng.device), ref_ab.to(eng.device), is_ref,
+                    ref_frames=colored.to(eng.device), frame_propagate=frame_propagate)
+            return run
+
+        def remaster(**kw):
+            eng = exemplar.RemasterEngine(frame_size=rh, **kw)
+            return eng.dtype, exemplar.remaster_propagate(
+                eng, rmf.to(eng.device), rm_refs.to(eng.device), ref_positions=np.arange(6),
+                ref_buffer_size=4)
+
+        for name, run, tol in (("colormnet_propagate", colormnet(True), BF16_AB),
+                               ("colormnet_propagate/exemplar", colormnet(False), BF16_AB),
+                               ("remaster_propagate", remaster, BF16_RGB)):
+            _, want = run(device="cpu")
+            f32_dtype, f32 = run(device="cuda", dtype=torch.float32)
+            b16_dtype, b16 = run(device="cuda")
+            err = (f32.cpu() - want).abs().max().item()
+            d = moved(want, b16.cpu(), tol["over"])
+            out[name] = dict(f32_engine=str(f32_dtype), default_engine=str(b16_dtype),
+                             f32_vs_cpu_max_abs=err, bf16_vs_cpu=d, shape=list(want.shape))
+            if f32_dtype != torch.float32 or b16_dtype != torch.bfloat16:
+                fail(f"exemplar_f32_vs_bf16 {name}: engines {f32_dtype} / {b16_dtype}")
+            if not err <= PARITY_TOL:
+                fail(f"exemplar_f32_vs_bf16 {name}: the float32 engine on the card is {err} "
+                     f"from the CPU's (tol {PARITY_TOL})")
+            if not within(d, tol) or d["max_abs"] == 0.0:
+                fail(f"exemplar_f32_vs_bf16 {name}: the bf16 engine is {d} from the CPU's "
+                     f"float32 (tol {tol}; 0 would mean it ran float32)")
+    finally:
+        engines.registry._cache.clear()
+        engines.registry._cache.update(saved)
+    return out
+
+
+def phase_exemplar_f32_vs_bf16(ht, pc, wa, card: str, tmp: str) -> dict:
+    """The exemplar engines at both precisions.  At test size (host-made
+    engines on both devices): ``ColorMNetEngine(dtype=torch.float32)`` and
+    ``RemasterEngine(dtype=torch.float32)`` on the card against the CPU
+    within PARITY_TOL, the default bf16 engines' distance from it.  At full
+    width, each of the exemplar path (24x1080p, three scenes), the
+    scene-batched ``HAVC_deepex`` (48x1080p, six scenes), ``HAVC_DeepRemaster``
+    (24x1080p, 20 references) and the ColorMNet restore stream (the restore
+    phase's 48-frame pair, chunk 16) run with the default engines and with
+    float32 ones (``Precision``), timed in turns bf16, f32, f32, bf16 after
+    a warm-up call of each: wall times, fps, the kernels' launches of each
+    precision (each instantiation of window attention only at its own),
+    the host syncs inside the three scans at bf16 (none allowed), and the
+    bf16 output's distance from the float32 one."""
+    from havc_tpu_torch import exemplar, streaming
+
+    emit(dict(phase="exemplar_f32_vs_bf16", card=card, test_size=f32_vs_bf16_test_size(card)))
+    frames = torch.from_numpy(scene_clip_1080p()).cuda()
+    colored = tinted(frames, 8)
+    gray48 = torch.from_numpy(np.repeat(np.stack(list(smooth_frames(SCENE_T, SCENE_PER, 9)))[
+        ..., None], 3, axis=-1)).cuda()
+    clip48 = ht.Clip(frames=gray48)
+    ref48 = ht.HAVC_colorizer(clip48, sc_threshold=0.10)
+    src, ref = f"{tmp}/restore_gray.y4m", f"{tmp}/restore_ref.y4m"
+    paths = {
+        "exemplar_path": (MAIN_SHAPE[0], lambda: ht.HAVC_main(
+            ht.Clip(frames=frames), EnableDeepEx=True, engine_config="full").frames),
+        "scene_parallel_path": (SCENE_T, lambda: ht.HAVC_deepex(
+            clip48, ref48, render_vivid=True, scene_parallel=True, engine_config="full").frames),
+        "remaster_path": (MAIN_SHAPE[0], lambda: ht.HAVC_DeepRemaster(
+            ht.Clip(frames=frames), clip_ref=ht.Clip(frames=colored)).frames),
+        "restore_streaming": (RESTORE_T, lambda: streaming.HAVC_restore_video_streaming(
+            src, ref, f"{tmp}/unused.mp4", ex_model=0, engine_config="full", chunk_size=16,
+            sink="null")),
+    }
+    scans = ("colormnet_propagate", "colormnet_propagate_scenes", "remaster_propagate")
+    f32, b16 = torch.float32, torch.bfloat16
+    by_path, rows = {}, {}
+    for name, (n, run) in paths.items():
+        warm_s = {}
+        for dtype in (f32, b16):  # each precision's engines made, cuDNN selection
+            with Precision(exemplar, dtype):
+                _, warm_s[str(dtype)] = timed(run)
+        walls, outs, launches, syncs, peaks = {f32: [], b16: []}, {}, {}, {}, {}
+        for dtype in (b16, f32, f32, b16):
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches(pc, wa)
+            with Precision(exemplar, dtype), LoopSyncs(exemplar, scans) as loop, \
+                    Recorder(streaming) as rec:
+                out, wall_s = timed(run)
+            walls[dtype].append(wall_s)
+            launches[dtype] = read_launches(pc, wa)
+            syncs[dtype] = loop.by_name
+            peaks[dtype] = torch.cuda.max_memory_allocated()
+            outs[dtype] = rec.joined("packed") if name == "restore_streaming" else out
+            if loop.syncs and dtype == b16:
+                fail(f"exemplar_f32_vs_bf16 {name}: the scans waited for the card "
+                     f"{loop.syncs} times at bf16: {loop.sites[:6]}")
+            ran = {d for r in loop.by_name.values() for d in r["dtypes"]}
+            if ran != {str(dtype)}:
+                fail(f"exemplar_f32_vs_bf16 {name}: a {dtype} run ran engines of {ran}")
+        own, other = "window_attn_bf16", "window_attn"
+        for dtype in (b16, f32):
+            if name != "remaster_path" and (launches[dtype][own] < 1 or launches[dtype][other]):
+                fail(f"exemplar_f32_vs_bf16 {name}: window attention at {dtype}: "
+                     f"{launches[dtype]}")
+            own, other = other, own
+        if name == "restore_streaming":  # the retired uv codes, on the RGB scale
+            outs = {d: torch.from_numpy(o.astype(np.float32) / 255.0) for d, o in outs.items()}
+        dist = moved(outs[b16], outs[f32], BF16_RGB["over"])
+        med = {d: statistics.median(w) for d, w in walls.items()}
+        rows[name] = dict(frames=n, warmup_s=warm_s, wall_s_bf16=walls[b16],
+                          wall_s_f32=walls[f32], fps_bf16=n / med[b16], fps_f32=n / med[f32],
+                          f32_over_bf16=med[f32] / med[b16],
+                          peak_bytes_bf16=peaks[b16], peak_bytes_f32=peaks[f32],
+                          launches_bf16=launches[b16], launches_f32=launches[f32],
+                          scans_bf16=syncs[b16], bf16_vs_f32=dist)
+        by_path[f"exemplar_f32_vs_bf16/{name}_bf16"] = launches[b16]
+        by_path[f"exemplar_f32_vs_bf16/{name}_f32"] = launches[f32]
+        emit(dict(phase="exemplar_f32_vs_bf16", card=card, path=name, **rows[name]))
+        if not within(dist, BF16_RGB):
+            fail(f"exemplar_f32_vs_bf16 {name}: bf16 against float32 {dist} (tol {BF16_RGB})")
+    Precision.caches.clear()
+    return by_path
+
 # --- phases 28-30: the scene-batched scan, the mesh paths, checkpoint conversion ---------
 
 SCENE_T, SCENE_PER = 48, 8  # the scene path's clip: six scenes of 8 frames
 SCENE_S = SCENE_T // SCENE_PER
-SCENE_TOL = dict(max_abs=1e-3, moved_share=0.01)  # batched against sequential, per value
-MESH2_TOL = dict(max_abs=1e-3, moved_share=0.01)  # two shards against one device
+SCENE_TOL = BF16_AB  # bf16 batched against bf16 sequential, per ab value
+MESH2_TOL = dict(max_abs=1e-3, moved_share=0.01)  # two shards against one device, float32
 
 
-def moved(a: torch.Tensor, b: torch.Tensor, over: float = 1e-4) -> dict:
-    d = (a.float() - b.float()).abs()
-    return dict(max_abs=d.max().item(), moved_share=(d > over).float().mean().item())
+def moved(a, b, over: float = 1e-4) -> dict:
+    a = torch.as_tensor(a)
+    d = (a.float() - torch.as_tensor(b).to(a.device).float()).abs()
+    return dict(max_abs=d.max().item(), mean_abs=d.mean().item(),
+                moved_share=(d > over).float().mean().item())
+
+
+def within(d: dict, tol: dict) -> bool:
+    """``moved``'s numbers (taken ``over`` tol's threshold) inside ``tol``."""
+    return all(d[k] <= tol[k] for k in ("max_abs", "mean_abs", "moved_share") if k in tol)
 
 
 class Captured:
@@ -2483,12 +2758,15 @@ def phase_scene_parallel_path(ht, pc, wa, card: str) -> dict:
         outs[name] = (out.frames, cap.ab[0])
         rows[name] = dict(first_call_s=first_s, wall_s=wall_s, fps=SCENE_T / wall_s,
                           max_memory_allocated=torch.cuda.max_memory_allocated(),
-                          window_attn_calls=launches["window_attn"],
-                          window_attn_launches=2 * launches["window_attn"],
+                          window_attn_calls=launches["window_attn_bf16"],
+                          window_attn_launches=2 * launches["window_attn_bf16"],
+                          window_attn_f32_calls=launches["window_attn"],
                           scan_host_syncs=loop.by_name, scan_sync_sites=loop.sites[:6],
                           ab_shape=list(cap.ab[0].shape))
-        if loop.syncs:
-            fail(f"scene_parallel_path {name}: the scan waited for the card {loop.syncs} times")
+        if loop.syncs or launches["window_attn"] or loop.float32_engines():
+            fail(f"scene_parallel_path {name}: the scan waited for the card {loop.syncs} "
+                 f"times, ran window attention {launches['window_attn']} times on float32 "
+                 f"inputs, float32 engines in {loop.float32_engines()}")
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = os.path.join(os.environ.get("HAVC_TRACE_DIR", tmp), "scene_parallel_trace")
         with device_trace(trace_dir):
@@ -2498,8 +2776,8 @@ def phase_scene_parallel_path(ht, pc, wa, card: str) -> dict:
         trace_bytes = sum(os.path.getsize(t) for t in traces)
         with open(traces[0]) as fh:
             trace_events = len(json.load(fh).get("traceEvents", []))
-    ab = moved(outs["scene_parallel"][1], outs["sequential"][1])
-    rgb = moved(outs["scene_parallel"][0], outs["sequential"][0])
+    ab = moved(outs["scene_parallel"][1], outs["sequential"][1], SCENE_TOL["over"])
+    rgb = moved(outs["scene_parallel"][0], outs["sequential"][0], SCENE_TOL["over"])
     f = outs["scene_parallel"][0]
     finite = bool(torch.isfinite(f).all().item())
     emit(dict(phase="scene_parallel_path", card=card, clip=[SCENE_T, *MAIN_SHAPE[1:], 3],
@@ -2515,8 +2793,7 @@ def phase_scene_parallel_path(ht, pc, wa, card: str) -> dict:
     if rows["sequential"]["window_attn_calls"] != SCENE_T - SCENE_S:
         fail(f"scene_parallel_path: the sequential scan ran window attention "
              f"{rows['sequential']['window_attn_calls']} times, expected {SCENE_T - SCENE_S}")
-    if not finite or ab["max_abs"] > SCENE_TOL["max_abs"] or \
-            ab["moved_share"] > SCENE_TOL["moved_share"]:
+    if not finite or not within(ab, SCENE_TOL):
         fail(f"scene_parallel_path: scene-batched against sequential ab {ab} (tol {SCENE_TOL}), "
              f"finite={finite}")
     if not trace_events:
@@ -2569,7 +2846,9 @@ def phase_mesh_paths(ht, pc, wa, card: str) -> dict:
     ``sharded_classic_pipeline`` at its production geometry (resnet101
     DeOldify, large DDColor, render factor 24, 384, 8 frames of 1080p),
     each against its unsharded run: the mesh of one exactly, two shards
-    within ``MESH2_TOL`` (Deep-Exemplar's argmax by the share moved)."""
+    within ``MESH2_TOL`` (Deep-Exemplar's argmax by the share moved; the
+    bf16 ColorMNet's ab within ``BF16_AB``, NetworkC's RGB within
+    ``BF16_RGB``)."""
     from havc_tpu_torch import exemplar
     from havc_tpu_torch.models import ddcolor as dd
     from havc_tpu_torch.models import deoldify as do
@@ -2583,12 +2862,12 @@ def phase_mesh_paths(ht, pc, wa, card: str) -> dict:
     rows, by_path, bad = {}, {}, []
 
     def check(name, one, shards, exact, tol=MESH2_TOL):
-        r = dict(mesh1_equal=bool(torch.equal(one[0], one[1])), mesh2=moved(shards, one[1]))
+        r = dict(mesh1_equal=bool(torch.equal(one[0], one[1])),
+                 mesh2=moved(shards, one[1], tol.get("over", 1e-4)), tol=tol)
         rows[name] = r
         if exact and not r["mesh1_equal"]:
             bad.append(f"{name}: the mesh of one differs from the unsharded run")
-        if r["mesh2"]["max_abs"] > tol["max_abs"] or r["mesh2"]["moved_share"] > \
-                tol["moved_share"]:
+        if not within(r["mesh2"], tol):
             bad.append(f"{name}: two shards {r['mesh2']} (tol {tol})")
 
     # ColorMNet's scene scan at the Medium work size
@@ -2603,7 +2882,8 @@ def phase_mesh_paths(ht, pc, wa, card: str) -> dict:
     is_ref[::SCENE_PER] = True
     cm = [exemplar.colormnet_propagate_scenes(eng, frames, ref_ab, is_ref, ref_frames=colored,
                                               mesh=m) for m in (None, mesh1, mesh2)]
-    check("colormnet_propagate_scenes", cm[:2], cm[2], True)
+    # bf16: two shards batch three scenes each against six
+    check("colormnet_propagate_scenes", cm[:2], cm[2], True, BF16_AB)
     # Deep-Exemplar's frame batches (no WLS smoother: it runs after the gather)
     dx_eng = exemplar.DeepExEngine("medium", "cuda")
     dxf = torch.nn.functional.interpolate(frames[:24].permute(0, 3, 1, 2), size=(
@@ -2622,7 +2902,7 @@ def phase_mesh_paths(ht, pc, wa, card: str) -> dict:
     rm_eng = exemplar.RemasterEngine(device="cuda")
     rm = [exemplar.remaster_propagate(rm_eng, rmf, rm_refs, ref_positions=np.arange(20),
                                       mesh=m) for m in (None, mesh1, mesh2)]
-    check("remaster_propagate", rm[:2], rm[2], True)
+    check("remaster_propagate", rm[:2], rm[2], True, BF16_RGB)
     # a row-sharded stencil: the halo exchange
     x = torch.rand((8, *MAIN_SHAPE[1:], 3), generator=torch.Generator(device="cuda").manual_seed(
         12), device="cuda")
@@ -2797,7 +3077,7 @@ def main() -> None:
     summary = [phase_kernels(pc, smi, sass_per_pixel,
                              torch.cuda.get_device_properties(0).multi_processor_count,
                              smi_max_sm_clock_hz()),
-               phase_window_attn(wa, smi)]
+               *phase_window_attn(wa, smi)]
     by_path = {}  # path -> {kernel: launches in that path's measured run}
     # before any model is on the card, so its peak is the filter's own
     phase_bw_tune_memory(ht, smi)
@@ -2852,13 +3132,19 @@ def main() -> None:
         phase_profile("restore_streaming", run_restore, rs_wall_s, smi, "window_attn")
         del run_restore
         by_path["restore_streaming_engines"] = phase_restore_streaming_engines(pc, wa, smi, tmp)
+        by_path.update(phase_exemplar_f32_vs_bf16(ht, pc, wa, smi, tmp))
 
-    # `launches`: each kernel's slice's own path (the post chain: HAVC_main
-    # with its defaults; window attention: the exemplar path), in calls
+    # `launches`: each kernel's slice's own path, in calls: the post chain
+    # on HAVC_main with its defaults; window attention's bf16 instantiation
+    # on the exemplar path at the card's default precision, its float32 one
+    # on the same path with float32 engines
     summary[0]["launches"] = by_path["main_path"]["post_chain"]
-    summary[1]["launches"] = by_path["exemplar_path"]["window_attn"]
+    summary[1]["launches"] = by_path["exemplar_f32_vs_bf16/exemplar_path_f32"]["window_attn"]
+    summary[2]["launches"] = by_path["exemplar_path"]["window_attn_bf16"]
     for row in summary:
         row["launches_by_path"] = {p: k[row["name"]] for p, k in by_path.items()}
+        if not row["launches"]:
+            fail(f"{row['name']}: no launch on its path")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,14 @@ its own /16 geometry (``remaster_work_shape``).  The hybrid (``ex_model``
 3) blends ColorMNet with a vivid DeepEx.  Scene bounds, batches, window
 starts and the reference cache are decided on the host from numpy.
 
+ColorMNet and DeepRemaster run in the engine's ``dtype``: by default
+bfloat16 on the card and float32 on the CPU, as the JAX package runs them
+in bf16 on its accelerator (``device.type == "cuda"`` stands for its
+``jax.default_backend() == "tpu"``).  The engine casts its network's
+float tensors once; the propagations cast their inputs at the engine's
+door and return float32.  Deep-Exemplar stays float32, as in the JAX
+package.
+
 In vivid mode every reference rebuilds ColorMNet's core, so the scenes
 are independent: ``colormnet_propagate_scenes`` runs them all in one step
 per frame of the longest scene (``HAVC_deepex(scene_parallel=True)``).
@@ -128,6 +136,20 @@ def remaster_work_shape(width: int, height: int, frame_mindim: int = 320):
     return fh, fw
 
 
+def _engine_dtype(dtype, device: torch.device) -> torch.dtype:
+    """``None`` -> bfloat16 on a CUDA device, float32 elsewhere."""
+    if dtype is None:
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    return dtype
+
+
+def _cast_net(net: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """The registry's float32 module itself, or a copy with its float
+    parameters and buffers cast to ``dtype`` (the registry's stays
+    float32 for other engines)."""
+    return net if dtype == torch.float32 else copy.deepcopy(net).to(dtype)
+
+
 def pad112_geometry(wh: int, ww: int):
     """ColorMNet input geometry: padded to multiples of 112 = lcm(14, 16)
     with symmetric borders so the DINOv2 1/14 and ResNet 1/16 grids align.
@@ -139,15 +161,18 @@ def pad112_geometry(wh: int, ww: int):
 
 
 class ColorMNetEngine:
-    """One ColorMNet instance: its network on ``device`` and its memory
-    configuration.  ``config="micro"`` is the test scale, ``"full"`` the
-    published geometry (ResNet50 + DINOv2-S/14, Ck 64, Cv 512)."""
+    """One ColorMNet instance: its network on ``device`` in ``dtype`` and
+    its memory configuration.  ``config="micro"`` is the test scale,
+    ``"full"`` the published geometry (ResNet50 + DINOv2-S/14, Ck 64, Cv
+    512).  ``dtype=None`` is bfloat16 on a CUDA device and float32 on the
+    CPU; pass ``torch.float32`` for float32 on the card."""
 
-    def __init__(self, config: str = "full", work_size=(224, 384), max_mem: int = 0,
-                 device=None):
+    def __init__(self, config: str = "full", work_size=(224, 384), dtype=None,
+                 max_mem: int = 0, device=None):
         c = cm.COLORMNET_CONFIGS[config]
         self.cfg_name = config
         self.device = resolve_device(device)
+        self.dtype = _engine_dtype(dtype, self.device)
         self.key_dim, self.value_dim, self.hidden_dim = c["key_dim"], c["value_dim"], c["hidden_dim"]
         self.h, self.w = work_size
         self.g16_hw = (self.h // 16, self.w // 16)
@@ -168,7 +193,7 @@ class ColorMNetEngine:
                 and registry.weights_dir is not None:
             warnings.warn("ColorMNet engine: weights_dir is set but no converted checkpoint "
                           "(colormnet.npz) was found; random init")
-        self.net = registry.colormnet(config, self.device)
+        self.net = _cast_net(registry.colormnet(config, self.device), self.dtype)
 
 
 def _lab_l3(rgb: torch.Tensor) -> torch.Tensor:
@@ -187,23 +212,25 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cm_init_carry(engine: ColorMNetEngine, scenes: Optional[int] = None):
-    """Fresh carry: empty memory, zero hidden and short-term state, frame
-    counter and last memory frame 0; ``scenes`` S batches every device
-    part over a leading scene axis (the hidden and short-term values are
-    scene-major: scene s's objects at rows 2s, 2s + 1)."""
+    """Fresh carry in the engine's dtype: empty memory, zero hidden and
+    short-term state, frame counter and last memory frame 0; ``scenes`` S
+    batches every device part over a leading scene axis (the hidden and
+    short-term values are scene-major: scene s's objects at rows 2s,
+    2s + 1)."""
     h16, w16 = engine.g16_hw
-    dev = engine.device
+    kw = dict(device=engine.device, dtype=engine.dtype)
     b = 1 if scenes is None else scenes
-    return (mem.init_memory(engine.mem_cfg, device=dev, scenes=scenes),
-            torch.zeros((2 * b, engine.hidden_dim, h16, w16), device=dev),
-            torch.zeros((b, engine.key_dim, h16, w16), device=dev),
-            torch.zeros((2 * b, engine.value_dim, h16, w16), device=dev),
+    return (mem.init_memory(engine.mem_cfg, scenes=scenes, **kw),
+            torch.zeros((2 * b, engine.hidden_dim, h16, w16), **kw),
+            torch.zeros((b, engine.key_dim, h16, w16), **kw),
+            torch.zeros((2 * b, engine.value_dim, h16, w16), **kw),
             0, 0)
 
 
 def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Tensor,
                 ref_frames: torch.Tensor, ref_idx):
-    """pad112 in normalised-LAB space and the batched key encoder.
+    """pad112 in normalised-LAB space, cast to the engine's dtype, and the
+    batched key encoder.
 
     Returns the per-frame inputs (NCHW with leading T), the exemplars'
     (only for the reference frames ``ref_idx``, in that order, or None)
@@ -216,7 +243,7 @@ def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Ten
     pads = (lw, engine.w - fw - lw, lh, engine.h - fh - lh)
 
     def l3(x):  # zeros in normalised space = L*=50, neutral ab
-        return torch.nn.functional.pad(_lab_l3(x).permute(0, 3, 1, 2), pads)
+        return torch.nn.functional.pad(_lab_l3(x).permute(0, 3, 1, 2).to(engine.dtype), pads)
 
     net = engine.net
 
@@ -228,7 +255,7 @@ def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Ten
         return [torch.cat([o[i] for o in outs]) for i in range(6)]
 
     frames_l3 = l3(frames)
-    rab = torch.nn.functional.pad(ref_ab.permute(0, 3, 1, 2), pads)
+    rab = torch.nn.functional.pad(ref_ab.permute(0, 3, 1, 2).to(engine.dtype), pads)
     with stage_timer("cm_key_encoder"):
         g16, g8, g4, key, shrink, sel = encode(frames_l3)
         ref_pre = None
@@ -334,7 +361,8 @@ def colormnet_propagate(
     reset_schedule=None,  # (T,) all-refs core rebuilds
 ):
     """Run the clip through the memory network: (T, H, W, 2) normalised ab,
-    a tensor on the engine's device.
+    a float32 tensor on the engine's device (the network runs in the
+    engine's dtype).
 
     The InferenceCore of the JAX package's scan, frame by frame, in sync
     mode with long-term memory on: ``frame_propagate=True`` outputs the
@@ -388,7 +416,7 @@ def colormnet_propagate(
                 carry, ab = step(carry, tuple(a[t:t + 1] for a in xs) + (bool(is_ref[t]),), ref,
                                  bool(reset[t]))
                 outs.append(ab)
-        ab = torch.stack(outs).permute(0, 2, 3, 1)[:, lh:lh + fh, lw:lw + fw]
+        ab = torch.stack(outs).permute(0, 2, 3, 1)[:, lh:lh + fh, lw:lw + fw].float()
     if return_state:
         return ab, carry
     return ab
@@ -421,7 +449,7 @@ def colormnet_propagate_scenes(
     mesh=None,  # parallel.Mesh: scenes split over its ``data`` axis
 ):
     """Vivid propagation with the scenes batched: (T, H, W, 2) normalised
-    ab, a tensor on the engine's device.
+    ab, a float32 tensor on the engine's device.
 
     In vivid mode every reference rebuilds the InferenceCore, so each
     scene (a reference and the frames up to the next) is independent.
@@ -491,7 +519,7 @@ def colormnet_propagate_scenes(
         ab = ab.permute(0, 1, 3, 4, 2)[:, :, lh:lh + fh, lw:lw + fw]
         out_idx = torch.cat([torch.arange(ln, device=dev) * S_pad + i
                              for i, ln in enumerate(lengths)])
-        return ab.reshape((L * S_pad,) + ab.shape[2:]).index_select(0, out_idx)
+        return ab.reshape((L * S_pad,) + ab.shape[2:]).index_select(0, out_idx).float()
 
 
 # ---------------------------------------------------------------------------
@@ -598,14 +626,18 @@ REMASTER_GROUP = 4  # frame windows per NetworkC forward
 
 
 class RemasterEngine:
-    """NetworkC on ``device`` in float32 (the registry's ``remaster.npz``
-    when one is configured, else seeded weights).  ``frame_size`` is the
-    work size's smaller side (``remaster_work_shape``)."""
+    """NetworkC on ``device`` in ``dtype`` (the registry's
+    ``remaster.npz`` when one is configured, else seeded weights).
+    ``frame_size`` is the work size's smaller side
+    (``remaster_work_shape``).  ``dtype=None`` is bfloat16 on a CUDA
+    device and float32 on the CPU; pass ``torch.float32`` for float32 on
+    the card."""
 
-    def __init__(self, frame_size: int = 320, device=None):
+    def __init__(self, frame_size: int = 320, device=None, dtype=None):
         self.size = frame_size
         self.device = resolve_device(device)
-        self.model = registry.remaster(self.device)
+        self.dtype = _engine_dtype(dtype, self.device)
+        self.model = _cast_net(registry.remaster(self.device), self.dtype)
 
 
 def _remaster_window_starts(T: int, length: int, S: int, R: int, ref_positions,
@@ -635,8 +667,9 @@ def remaster_propagate(
     mesh=None,
     frame0: int = 0,  # global index of frames[0] (streaming chunks)
 ) -> torch.Tensor:
-    """Windowed NetworkC colorization: (T, H, W, 3) RGB in [0, 1], a tensor
-    on the engine's device.
+    """Windowed NetworkC colorization: (T, H, W, 3) RGB in [0, 1], a float32
+    tensor on the engine's device (the luma and the references enter
+    NetworkC in the engine's dtype).
 
     ``length`` frames a forward against a sliding window of
     ``ref_buffer_size`` consecutive references, which advances one slot
@@ -653,6 +686,7 @@ def remaster_propagate(
     encoded references on every device; the results are gathered onto the
     engine's device."""
     dev = engine.device
+    dtype = getattr(engine, "dtype", torch.float32)  # as the JAX package reads it
     group, devs, on = REMASTER_GROUP, [dev], {dev: engine.model}
     if mesh is not None:
         from ..parallel import replicate
@@ -675,7 +709,7 @@ def remaster_propagate(
             j += 1
         if ws not in ref_cache:  # only the current window's encoding is kept
             with stage_timer("remaster_encode_refs"):
-                window = refs[ws:ws + S].permute(3, 0, 1, 2)[None]  # (1, 3, S, H, W)
+                window = refs[ws:ws + S].permute(3, 0, 1, 2)[None].to(dtype)
                 feats = engine.model.encode_refs(window)
                 ref_cache = {ws: {dev: feats} if mesh is None else replicate(feats, mesh)}
         chunks = []
@@ -687,10 +721,11 @@ def remaster_propagate(
         n_real = len(chunks)
         chunks += [chunks[-1]] * (group - n_real)
         with stage_timer("remaster_windows"):
-            batch = torch.stack(chunks).permute(0, 4, 1, 2, 3)  # (G, 1, length, H, W)
+            batch = torch.stack(chunks).permute(0, 4, 1, 2, 3).to(dtype)  # (G, 1, T, H, W)
             ab01g = [on[d].colorize_with_refs(batch[k * per:(k + 1) * per].to(
                 d, non_blocking=True), *ref_cache[ws][d]) for k, d in enumerate(devs)]
             ab01g = torch.cat([a.to(dev, non_blocking=True) for a in ab01g]).permute(0, 2, 3, 4, 1)
+            ab01g = ab01g.float()
         for k in range(n_real):
             outs.append(ab01g[k][:min(length, T - starts[i + k])])
         i = j

@@ -53,7 +53,7 @@ SOURCES = {
     "window_attn": Kernel(
         flags=(),
         entries={
-            "window_attn_launch": ([_P] * 6 + [_I] * 6 + [_F, _I, _P], _I),
+            "window_attn_launch": ([_P] * 6 + [_I] * 6 + [_F, _I, _I, _P], _I),
             "window_attn_scratch_floats": ([_I] * 4, ctypes.c_longlong),
         },
     ),

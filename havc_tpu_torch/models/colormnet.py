@@ -9,6 +9,12 @@ bilinear_nchw``), which antialiases when it downscales; flax's SAME
 padding, LayerNorm eps 1e-6, CBAM's (max, mean) channel pool and the
 (heads, 1, 1) temperature of the channel attention are kept.  Parameter
 names are the flax ones.
+
+The modules compute in the dtype of their parameters and input (an
+engine cast to bfloat16 runs them in bf16), and in float32 where the JAX
+modules ask for it (``preferred_element_type=jnp.float32``): the channel
+attention's logits and softmax, the window attention (float32 result,
+cast back to the values' dtype) and the memory similarity.
 """
 from __future__ import annotations
 
@@ -97,7 +103,9 @@ class CrossChannelAttention(nn.Module):
         q, k, v = qkv(enc, "to_q"), qkv(dnc, "to_k"), qkv(dnc, "to_v")
         q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
         k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
-        attn = torch.softmax((q @ k.transpose(-1, -2)) * self.temperature, dim=-1)
+        # logits and softmax in float32, the weights back in the input's type
+        logits = (q.float() @ k.float().transpose(-1, -2)) * self.temperature.float()
+        attn = torch.softmax(logits, dim=-1).to(enc.dtype)
         return self.to_out((attn @ v).reshape(b, -1, h, w))
 
 
@@ -304,9 +312,9 @@ class Decoder(nn.Module):
 class LocalAttention(nn.Module):
     """Window-15 local attention of the current key onto the last memory
     frame (both objects' values jointly, d_vu = O * Cv): ``window_attn``
-    (the CUDA kernel on the card), then a 5x5 depthwise conv without bias
-    and the output projection.  q, k (B, d_qk, H, W), v (B, d_vu, H, W)
-    -> (B, d_vu, H, W)."""
+    (the CUDA kernel on the card; float32 out, cast to v's dtype), then a
+    5x5 depthwise conv without bias and the output projection.  q, k (B,
+    d_qk, H, W), v (B, d_vu, H, W) -> (B, d_vu, H, W)."""
 
     def __init__(self, d_qk: int, d_vu: int, max_dis: int = 7):
         super().__init__()
@@ -320,7 +328,7 @@ class LocalAttention(nn.Module):
     def forward(self, q, k, v):
         nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()  # noqa: E731
         rel = self.relative_emb_k(q)
-        out = window_attn(nhwc(q), nhwc(k), nhwc(v), nhwc(rel), self.max_dis)
+        out = window_attn(nhwc(q), nhwc(k), nhwc(v), nhwc(rel), self.max_dis).to(v.dtype)
         out = self.dw_conv(out.permute(0, 3, 1, 2))
         return self.projection(out.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
@@ -358,18 +366,28 @@ def stable_top_k(x: torch.Tensor, k: int):
 def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor], qk: torch.Tensor,
                    qe: Optional[torch.Tensor]) -> torch.Tensor:
     """Anisotropic L2 similarity.  mk (N, Ck) memory keys, ms (N,)
-    shrinkage, qk (P, Ck) query keys, qe (P, Ck) selection -> (N, P); with
-    leading batch axes on all four, batched products."""
+    shrinkage, qk (P, Ck) query keys, qe (P, Ck) selection -> (N, P)
+    float32; with leading batch axes on all four, batched products.
+
+    The products run in float32 whatever the stores' dtype, as the JAX
+    package's ``preferred_element_type=jnp.float32, precision=HIGHEST``
+    contractions do: a bf16 product would round the similarities to bf16
+    and turn the top-k into near-ties.  Their operands ``mk ** 2`` and
+    ``qk * qe`` are formed in the stores' dtype first, as the jitted JAX
+    function forms them; ``b_sq`` is summed from the float32 values (XLA
+    fuses that reduction)."""
     ck = mk.shape[-1]
+    f32 = torch.float32
     if qe is not None:
-        a_sq = (mk ** 2) @ qe.transpose(-1, -2)
-        two_ab = 2.0 * (mk @ (qk * qe).transpose(-1, -2))
-        b_sq = (qe * qk ** 2).sum(dim=-1)[..., None, :]
+        a_sq = (mk ** 2).to(f32) @ qe.to(f32).transpose(-1, -2)
+        two_ab = 2.0 * (mk.to(f32) @ (qk * qe).to(f32).transpose(-1, -2))
+        b_sq = (qe.to(f32) * qk.to(f32) ** 2).sum(dim=-1)[..., None, :]
         sim = -a_sq + two_ab - b_sq
     else:
-        sim = -(mk ** 2).sum(dim=-1)[..., None] + 2.0 * (mk @ qk.transpose(-1, -2))
+        sim = -(mk ** 2).sum(dim=-1).to(f32)[..., None] \
+            + 2.0 * (mk.to(f32) @ qk.to(f32).transpose(-1, -2))
     if ms is not None:
-        sim = sim * ms[..., None]
+        sim = sim * ms.to(f32)[..., None]
     return sim / math.sqrt(ck)
 
 

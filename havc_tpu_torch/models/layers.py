@@ -30,7 +30,9 @@ _TRUNC_STD = 0.87962566103423978
 class BatchNormInference(nn.Module):
     """BatchNorm2d in inference form over NCHW, computed as the JAX
     package does: ``x * (g / sqrt(var + eps)) + (b - mean * g / sqrt(var +
-    eps))``.  ``running_mean``/``running_var`` are buffers."""
+    eps))``, in the parameters' dtype (an engine cast to bf16 folds in
+    bf16, as the JAX package's fold does with its parameters cast to the
+    activations' dtype).  ``running_mean``/``running_var`` are buffers."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()

@@ -20,6 +20,12 @@ long-term tokens are evicted, whether eviction runs) stays on the device:
 both branches are computed and ``torch.where`` picks.  Every tie among
 equal keys is broken as ``jax.lax.top_k`` breaks it (``stable_top_k``).
 
+The stores (keys, shrinkage, selection, values) hold the engine's dtype
+(``init_memory(..., dtype=torch.bfloat16)`` on the card), as the JAX
+package's do; use and life counts stay float32.  Similarities, the
+readout's and the potentiation's products run in float32 and are written
+back in the stores' dtype.
+
 With a leading scene axis (``init_memory(..., scenes=S)``) every device
 tensor gains a first dimension of S and the functions run all S memories
 at once: batched products, top-k along the last axis, eviction by
@@ -159,9 +165,11 @@ def _consolidate(s: MemoryState, cfg: MemoryConfig) -> MemoryState:
     m = sim.max(dim=-2, keepdim=True).values
     e = torch.where(cand_tok[..., None], torch.exp(sim - m), 0.0)
     aff = e / torch.clamp(e.sum(dim=-2, keepdim=True), min=1e-30)
-    proto_values = torch.einsum("...nk,...onc->...okc", aff, values)
+    values, shrink = values.float(), shrink.float()
+    proto_values = torch.einsum("...nk,...onc->...okc", aff, values).to(s.lt_values.dtype)
     proto_shrink = (aff.transpose(-1, -2) @ shrink if not lead
                     else (aff.transpose(-1, -2) @ shrink[..., None])[..., 0])
+    proto_shrink = proto_shrink.to(s.lt_shrink.dtype)
 
     # long-term eviction: once the store reaches L - k_p tokens, keep only
     # those whose normalised usage is strictly above the drop-th smallest;
@@ -226,9 +234,9 @@ def read_memory(state: MemoryState, cfg: MemoryConfig, qk: torch.Tensor,
                 ) -> Tuple[torch.Tensor, MemoryState]:
     """Top-k softmax readout over [long-term, working] tokens for query
     keys qk (P, Ck) with selection qe (P, Ck) (each with a leading S in a
-    scene batch): returns the (O, P, Cv) readout and the state with use/life
-    counts updated (only when ``update_usage`` and the memory holds
-    anything).  An empty memory reads as zeros."""
+    scene batch): returns the (O, P, Cv) readout, in the values' dtype, and
+    the state with use/life counts updated (only when ``update_usage`` and
+    the memory holds anything).  An empty memory reads as zeros."""
     W, P, L, O = cfg.max_mt_frames, cfg.tokens_per_frame, cfg.lt_capacity, cfg.num_objects
     lead = tuple(state.work_valid.shape[:-1])
     mk = torch.cat([state.lt_keys, state.work_keys.reshape(lead + (W * P, -1))], dim=-2)
@@ -238,9 +246,9 @@ def read_memory(state: MemoryState, cfg: MemoryConfig, qk: torch.Tensor,
     affinity, usage = topk_softmax(get_similarity(mk, ms, qk, qe), cfg.top_k, valid)
     # the readout of the two stores summed, instead of one product over
     # their concatenation (which would copy the long-term values each frame)
-    out = torch.einsum("...np,...onc->...opc", affinity[..., :L, :], state.lt_values) \
+    out = torch.einsum("...np,...onc->...opc", affinity[..., :L, :], state.lt_values.float()) \
         + torch.einsum("...np,...onc->...opc", affinity[..., L:, :],
-                       state.work_values.reshape(lead + (O, W * P, -1)))
+                       state.work_values.reshape(lead + (O, W * P, -1)).float())
 
     if update_usage:
         matched = valid.any(dim=-1, keepdim=True)
@@ -251,4 +259,4 @@ def read_memory(state: MemoryState, cfg: MemoryConfig, qk: torch.Tensor,
             lt_live = state.lt_valid & matched
             state.lt_use += torch.where(lt_live, usage[..., :L], 0.0)
             state.lt_life += torch.where(lt_live, 1.0, 0.0)
-    return out, state
+    return out.to(state.work_values.dtype), state

@@ -20,8 +20,13 @@ attention of one window has 5,760 x 57,600 logits, 1.33 GB in f32.
 
 ``TempConv`` folds its BatchNorm as the JAX package does, ``x * inv +
 (bias - mean * scale / sqrt(var + eps))`` with ``inv = scale / sqrt(var +
-eps)``; its statistics are the raw parameters ``bn_scale``, ``bn_bias``,
+eps)``, both constants formed in float32 and cast to the activations'
+dtype; its statistics are the raw parameters ``bn_scale``, ``bn_bias``,
 ``bn_mean``, ``bn_var`` and the attention gate is ``gamma`` (flax names).
+
+The network computes in the dtype of its parameters and input (bf16 when
+the engine casts it); the attentions' logits and softmax are float32, the
+weights cast back to the activations' dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -57,9 +62,10 @@ class TempConv(nn.Module):
 
     def forward(self, x):
         x = self.conv(x)
-        root = torch.sqrt(self.bn_var + 1e-5)
-        inv = self.bn_scale / root
-        shift = self.bn_bias - self.bn_mean * self.bn_scale / root
+        scale, var = self.bn_scale.float(), self.bn_var.float()
+        root = torch.sqrt(var + 1e-5)
+        inv = (scale / root).to(x.dtype)
+        shift = (self.bn_bias.float() - self.bn_mean.float() * scale / root).to(x.dtype)
         return F.elu(x * inv[:, None, None, None] + shift[:, None, None, None])
 
 
@@ -106,10 +112,12 @@ class SourceReferenceAttention(nn.Module):
         n, m = q.shape[1], k.shape[1]
         rows = max(1, min(n, ATTN_BLOCK_ELEMS // max(b * m, 1)))
         kt = k.transpose(1, 2)
-        out = torch.cat([torch.matmul(torch.softmax(torch.matmul(q[:, r:r + rows], kt), dim=-1), v)
+        q, kt = q.float(), kt.float()  # logits and softmax in float32
+        out = torch.cat([torch.matmul(torch.softmax(torch.matmul(q[:, r:r + rows], kt), dim=-1)
+                                      .to(v.dtype), v)
                          for r in range(0, n, rows)], dim=1)
         out = out.transpose(1, 2).reshape(b, c, st, sh, sw)
-        return self.gamma * out + source
+        return self.gamma.to(source.dtype) * out + source
 
 
 class _Trunk(nn.Module):

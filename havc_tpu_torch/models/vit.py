@@ -7,6 +7,10 @@ grid, the shared final norm on the last four blocks, then
 ``DinoSegmentor``: concat -> 1x1 conv (no bias) -> BatchNorm -> ReLU ->
 bilinear re-grid from the 1/14 to the 1/16 grid.  Attention is written
 as matmul + softmax.  Parameter names are the flax ones.
+
+The modules compute in the dtype of their parameters and input; the
+attention's logits and softmax and the position embeddings' bicubic
+re-grid are float32 whatever that dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ class Attention(nn.Module):
         b, n, c = x.shape
         d = c // self.heads
         q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, d).permute(2, 0, 3, 1, 4)
-        attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(d), dim=-1)
+        logits = q.float() @ k.float().transpose(-1, -2) / math.sqrt(d)
+        attn = torch.softmax(logits, dim=-1).to(x.dtype)
         out = (attn @ v).transpose(1, 2).reshape(b, n, c)
         return self.proj(out)
 
@@ -134,14 +139,14 @@ class ViT(nn.Module):
         if (gh, gw) != (g0, g0):
             # upstream interpolate_pos_encoding: bicubic with scale
             # (grid + 0.1) / pretrain_grid, antialias off
-            grid = pos_patch.reshape(g0, g0, self.dim)
+            grid = pos_patch.reshape(g0, g0, self.dim).float()
             mh = _bicubic_device(g0, gh, (gh + 0.1) / g0, x.device)
             mw = _bicubic_device(g0, gw, (gw + 0.1) / g0, x.device)
             grid = torch.einsum("oh,hwc->owc", mh, grid)
             grid = torch.einsum("pw,owc->opc", mw, grid)
-            pos_patch = grid.reshape(1, gh * gw, self.dim)
-        x = torch.cat([self.cls_token.expand(b, 1, self.dim), x], dim=1)
-        x = x + torch.cat([pos_cls, pos_patch], dim=1)
+            pos_patch = grid.reshape(1, gh * gw, self.dim).to(pos_cls.dtype)
+        x = torch.cat([self.cls_token.expand(b, 1, self.dim).to(x.dtype), x], dim=1)
+        x = x + torch.cat([pos_cls, pos_patch], dim=1).to(x.dtype)
         outs = []
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x)

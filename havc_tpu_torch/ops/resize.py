@@ -184,19 +184,22 @@ def _jax_linear_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _jax_linear_device(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_jax_linear_matrix(in_size, out_size)).to(device)
+def _jax_linear_device(in_size: int, out_size: int, device: torch.device,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The float32 weights on ``device``, cast to ``dtype`` once."""
+    return torch.from_numpy(_jax_linear_matrix(in_size, out_size)).to(device).to(dtype)
 
 
 def bilinear_nchw(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """``jax.image.resize(x, ..., "bilinear")`` over the H, W axes of an
-    NCHW tensor, as two matrix products in float32."""
+    NCHW tensor, as two matrix products in x's dtype (float32 weights cast
+    to it, as ``jax.image.resize`` casts them)."""
     out = x
     if x.shape[-2] != height:
-        wh = _jax_linear_device(x.shape[-2], height, x.device)
+        wh = _jax_linear_device(x.shape[-2], height, x.device, x.dtype)
         out = torch.einsum("oh,nchw->ncow", wh, out)
     if x.shape[-1] != width:
-        ww = _jax_linear_device(x.shape[-1], width, x.device)
+        ww = _jax_linear_device(x.shape[-1], width, x.device, x.dtype)
         out = torch.einsum("pw,ncow->ncop", ww, out)
     return out
 

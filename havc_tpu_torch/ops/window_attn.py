@@ -3,9 +3,12 @@
 For every query pixel, a softmax over the ``(2*max_dis+1)**2`` offsets of
 its window of ``(q * scale) . k + rel`` (``scale = 1/sqrt(d_qk)``,
 out-of-frame offsets set to -1e8), then the weighted sum of ``v``.
-Channel-last float32: q, k ``(B, H, W, d_qk)``, v ``(B, H, W, d_vu)``,
+Channel-last: q, k ``(B, H, W, d_qk)``, v ``(B, H, W, d_vu)``,
 rel ``(B, H, W, win*win)`` in offset order ``(dy + max_dis) * win + (dx +
-max_dis)``; the result is ``(B, H, W, d_vu)``.
+max_dis)``; the result is ``(B, H, W, d_vu)`` float32.  The inputs are
+all float32 or all bfloat16: bf16 values are computed with in float32 (q
+converted, then scaled), as the JAX package's kernel computes them, and
+reach the kernel's bf16 instantiation on the card without a cast.
 
 Three functions, as for the post chain:
 
@@ -31,7 +34,9 @@ __all__ = ["window_attn", "window_attn_cuda", "window_attn_reference"]
 
 
 def window_attn_reference(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
-    """Unfold-einsum version: the windows of k and v are materialised."""
+    """Unfold-einsum version: the windows of k and v are materialised,
+    in float32 whatever the inputs' type."""
+    q, k, v, rel = (t.float() for t in (q, k, v, rel))
     win = 2 * max_dis + 1
     b, h, w, _ = q.shape
 
@@ -55,8 +60,9 @@ def _check(q, k, v, rel, max_dis: int):
     for name, t in (("q", q), ("k", k), ("v", v), ("rel", rel)):
         if not t.is_cuda:
             raise ValueError(f"window_attn_cuda: {name} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise ValueError(f"window_attn_cuda: {name} must be float32, got {t.dtype}")
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
+            raise ValueError(f"window_attn_cuda: {name} must be float32 or bfloat16 like q, "
+                             f"got {t.dtype}")
         if t.ndim != 4 or not t.is_contiguous():
             raise ValueError(f"window_attn_cuda: {name} must be a contiguous 4-d tensor")
         if t.device != q.device:
@@ -82,7 +88,7 @@ def launch_stages(q, k, v, rel, wts, out, max_dis: int, stages: int) -> None:
         rc = lib.window_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), wts.data_ptr(),
             out.data_ptr(), b, h, w, d_qk, v.shape[-1], max_dis, 1.0 / math.sqrt(d_qk),
-            stages, stream,
+            stages, int(q.dtype == torch.bfloat16), stream,
         )
     if rc != 0:
         raise RuntimeError(f"window_attn_cuda: launch failed with CUDA error {rc} "
@@ -98,8 +104,10 @@ def scratch(q, max_dis: int) -> torch.Tensor:
 
 
 def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
-    """Launch the CUDA kernels; every input a contiguous float32 CUDA
-    tensor on one device.  One call, two launches, counted once."""
+    """Launch the CUDA kernels; every input a contiguous CUDA tensor on
+    one device, all float32 or all bfloat16 (each type its own
+    instantiation).  One call, two launches, counted once in ``launches``
+    and, on bf16 inputs, in ``launches_bf16`` too."""
     _check(q, k, v, rel, max_dis)
     b, h, w, _ = q.shape
     out = torch.empty((b, h, w, v.shape[-1]), dtype=torch.float32, device=q.device)
@@ -107,10 +115,12 @@ def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
         return out
     launch_stages(q, k, v, rel, scratch(q, max_dis), out, max_dis, 3)
     window_attn_cuda.launches += 1
+    window_attn_cuda.launches_bf16 += q.dtype == torch.bfloat16
     return out
 
 
 window_attn_cuda.launches = 0
+window_attn_cuda.launches_bf16 = 0
 
 
 def window_attn(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:

@@ -420,3 +420,23 @@ def test_signature_parity_of_this_slice():
     for key, jnode, skip in pairs:
         m, n = key.split(":")
         assert _signature(port_defs[m][n]) == _signature(jnode, skip), key
+
+
+# the exemplar engines' constructors: ``seed`` is JAX-only (the port's
+# registry seeds each module from its family and name, engines.py
+# EngineRegistry._make), ``device`` port-only
+ENGINE_CLASSES = ("ColorMNetEngine", "DeepExEngine", "RemasterEngine")
+
+
+@pytest.mark.parametrize("cls", ENGINE_CLASSES)
+def test_engine_constructor_signatures(cls):
+    """The engines' ``__init__`` keep the JAX package's parameter names,
+    order and defaults (``dtype`` included), without ``seed`` and
+    ``device``."""
+    def init(package):
+        node = _public_defs(package)["exemplar/__init__.py"][cls]
+        return next(f for f in node.body if isinstance(f, ast.FunctionDef)
+                    and f.name == "__init__")
+
+    assert _signature(init("havc_tpu_torch"), {"device"}) == \
+        _signature(init("havc_tpu"), {"seed"}), cls

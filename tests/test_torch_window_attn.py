@@ -4,7 +4,9 @@
 ``local_window_attention`` (the Pallas kernel in interpret mode) and to
 its ``local_window_attention_reference`` at max abs <= 1e-5: the same
 float32 function, summed in another order.  The CUDA kernel is held to
-the plain version on the card.
+the plain version on the card, its bf16-input instantiation on the same
+bf16 values (both compute in float32, so the same 1e-5 holds; the JAX
+side of the bf16 inputs is in tests/test_torch_bf16.py).
 
 The JAX package is imported by the fixture ``pa`` only, so that the card
 test runs where JAX is not installed (``python -m pytest --noconftest
@@ -74,6 +76,17 @@ def test_cpu_tensor_takes_plain_version():
     assert torch.equal(got, wa.window_attn_reference(q, k, v, rel))
 
 
+def test_cpu_bf16_tensors_take_plain_version_in_float32():
+    """bf16 inputs are computed with in float32 and give a float32 result,
+    the plain version on the upcast values."""
+    q, k, v, rel = (torch.from_numpy(x).bfloat16() for x in _inputs((1, 4, 5, 8), 16, 7, 4))
+    before = wa.window_attn_cuda.launches
+    got = wa.window_attn(q, k, v, rel)
+    assert wa.window_attn_cuda.launches == before and got.dtype == torch.float32
+    assert torch.equal(got, wa.window_attn_reference(q.float(), k.float(), v.float(),
+                                                     rel.float()))
+
+
 def test_kernel_wrapper_refuses_cpu_tensor_and_bad_shapes():
     q, k, v, rel = map(torch.from_numpy, _inputs((1, 4, 5, 8), 16, 7, 5))
     with pytest.raises(ValueError, match="CUDA"):
@@ -97,5 +110,30 @@ def test_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
     got = wa.window_attn(q, k, v, rel, max_dis=max_dis)
     torch.cuda.synchronize()
     assert wa.window_attn_cuda.launches == before + 1
+    want = wa.window_attn_reference(q, k, v, rel, max_dis=max_dis)
+    assert (got - want).abs().max().item() <= TOL
+
+
+# bf16 inputs: the 16-byte paths (8 channels a copy) at the path shape and
+# at the scene batch, the 2-byte scalar paths, and max_dis 0 (the smallest
+# ring, where the handed-over float32 sums outgrow it)
+BF16_CASES = [((1, 14, 28, 64), 1024, 7, 0), ((6, 14, 28, 64), 1024, 7, 4),
+              ((2, 5, 11, 6), 10, 2, 3), ((1, 3, 5, 8), 16, 0, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d_vu,max_dis,seed", BF16_CASES)
+def test_bf16_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
+    """The bf16 instantiation against the plain version on the same bf16
+    values: both compute in float32, so the float32 tolerance holds."""
+    _need_cuda()
+    q, k, v, rel = (torch.from_numpy(x).cuda().bfloat16()
+                    for x in _inputs(shape, d_vu, max_dis, seed))
+    before = (wa.window_attn_cuda.launches, wa.window_attn_cuda.launches_bf16)
+    got = wa.window_attn(q, k, v, rel, max_dis=max_dis)
+    torch.cuda.synchronize()
+    assert (wa.window_attn_cuda.launches, wa.window_attn_cuda.launches_bf16) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32
     want = wa.window_attn_reference(q, k, v, rel, max_dis=max_dis)
     assert (got - want).abs().max().item() <= TOL
