@@ -6,12 +6,21 @@ Builds the port's CUDA kernels from ``havc_tpu_torch/csrc`` (one ``nvcc``
 per source, started together), then runs these phases, each printing one
 JSON line; any failure exits non-zero:
 
-1. ``device``: the card's name and power limit, torch/CUDA versions; TF32
-   is switched off for matmuls and cuDNN (float32 engines compute in f32,
-   as the JAX package's do).  ColorMNet and DeepRemaster run at the card's
-   default precision, bf16, on every path below (each phase fails when a
-   float32 engine or window attention's float32 instantiation runs there);
-   phase 31 runs them at float32 too.
+1. ``device``: the card's name and power limit, torch/CUDA versions; then
+   ``precision`` (phase 32).  The performance phases run at PyTorch's
+   default flags, as users of the port get them: the float32 engines
+   (DeOldify, DDColor, Zhang, Deep-Exemplar) on TF32 tensor cores, the
+   resizes, filters and detectors at IEEE float32
+   (``havc_tpu_torch/utils/precision.py``).  ColorMNet and DeepRemaster
+   run at the card's default precision, bf16, on every path below (each
+   phase fails when a float32 engine or window attention's float32
+   instantiation runs there); phase 31 runs them at float32 too.  The
+   CPU<->card comparisons (phases 7, 23's flags and statistics, the
+   streaming and leftover parity, phase 31's test size) and the mesh
+   paths (29) run under the caller's IEEE flags
+   (``torch.backends.cuda.matmul.fp32_precision`` and
+   ``torch.backends.cudnn.conv.fp32_precision`` set to ``"ieee"``) and
+   keep their float32 bounds.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at its path's shape and at ragged, misaligned and odd ones, with
    CUDA-event timings (median of 10 batches of 20 calls) beside the card's
@@ -190,7 +199,24 @@ JSON line; any failure exits non-zero:
     restore stream at full width with the default engines and with float32
     ones, in turns: wall times and fps of both, launches of each window
     attention instantiation, 0 host syncs in the scans at bf16, the bf16
-    output's distance from the float32 one.
+    output's distance from the float32 one (the float32 engines at the
+    default flags: TF32).
+32. ``precision`` (right after ``device``): the engines' resolved float32
+    precision (``utils.precision.engine_fp32_precision``) and PyTorch's
+    flags at its defaults (TF32 resolved) and under the caller's IEEE
+    flags (IEEE resolved), and the flags inside the port's two contexts.
+33. ``classic_tf32_vs_ieee`` (after phase 21): ``HAVC_main`` at 1080p,
+    Placebo and ``HAVC_main(EnableDeepEx=True, DeepExModel=1)`` at the
+    default flags and under the caller's IEEE flags, in turns default,
+    IEEE, IEEE, default after a warm-up of each: wall times, fps, stage
+    times, peak memory, the share of values the precision moves; then the
+    main path's ``profile`` under IEEE with no ``tf32`` kernel (phase 4's,
+    at the default, must have some).  Phase 18's ``deepex_conv_paths``
+    gives one row a precision.
+34. ``pin_check``: with the process at TF32 for matmuls and convolutions,
+    the main path's chroma restore, ``bilinear_nchw`` and ColorMNet's
+    ``get_similarity`` at full width equal their IEEE results within 1e-6
+    and launch no ``tf32`` kernel (their unpinned products launch some).
 Each of 14-21 prints the wall time of a second call, fps, peak device
 memory, the stage times of a third call (18-22 name ``deepex_vgg``,
 ``deepex_warp``, ``deepex_colorvid``, ``deepex_wls``,
@@ -205,13 +231,14 @@ streaming (within 1 code), and the paths of 18-21 at 6x48x64 with
 Deep-Exemplar and NetworkC at full width and their work sizes cut to
 40x64 and 32x48 (DeepEx runs a hard argmax and ``HAVC_main`` a hue
 threshold: at most 2 % of the values more than 1e-4 apart; the hybrid and
-DeepRemaster, bf16 on the card, ``BF16_RGB``).  Each kernel's
-``launches_by_path`` gives its launches on every path driven (counts
-zeroed just before each path and read just after; ``exemplar_sources``
-sums its three calls); window attention's two instantiations are two
-rows, ``window_attn`` (float32 inputs, its ``launches`` from phase 31's
-float32 exemplar path) and ``window_attn_bf16`` (its ``launches`` from
-the exemplar path).
+DeepRemaster, bf16 on the card, ``BF16_RGB``); the main path and
+Deep-Exemplar also at the default flags against the CPU (``TF32_RGB``).
+Each kernel's ``launches_by_path`` gives its launches on every path
+driven (counts zeroed just before each path and read just after;
+``exemplar_sources`` sums its three calls); window attention's two
+instantiations are two rows, ``window_attn`` (float32 inputs, its
+``launches`` from phase 31's float32 exemplar path) and
+``window_attn_bf16`` (its ``launches`` from the exemplar path).
 
 Then the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the result line.  Without CUDA, or without the
@@ -219,6 +246,7 @@ package beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
 import json
@@ -248,6 +276,21 @@ PARITY_TOL = 1e-4
 # max 0.13; on ColorMNet's ab in [-1, 1] 39 %, mean 0.0093, max 0.042.
 BF16_RGB = dict(over=1e-2, moved_share=0.25, mean_abs=1e-2, max_abs=0.3)
 BF16_AB = dict(over=1e-2, moved_share=0.6, mean_abs=2e-2, max_abs=0.1)
+# PyTorch's float32 flags as a caller sets them: its defaults (the port's
+# engines then run TF32 on the card), IEEE everywhere, and the process at
+# TF32 (what ``torch.set_float32_matmul_precision("high")`` leaves)
+DEFAULT_FLAGS = dict(matmul="none", conv="tf32")
+IEEE_FLAGS = dict(matmul="ieee", conv="ieee")
+PROCESS_TF32 = dict(matmul="tf32", conv="tf32")
+# The main path and the Deep-Exemplar path at the default precision (TF32
+# engines) on the card against float32 on the CPU at test size, per value
+# as BF16_RGB, about twice what an H100 (700 W) gave: the main path max
+# 4.3e-5, mean 2.8e-6, no value moved more than 0.01; Deep-Exemplar's
+# 1e-10 argmax flips on TF32 rounding: 23 % of the values moved, mean
+# 0.0069, max 0.061
+TF32_RGB = {"main_path": dict(over=1e-2, moved_share=0.0, mean_abs=1e-5, max_abs=1e-4),
+            "deepex_path": dict(over=1e-2, moved_share=0.5, mean_abs=1.5e-2, max_abs=0.15)}
+PIN_TOL = 1e-6  # a pinned function with the process at TF32 against IEEE
 MAIN_SHAPE = (24, 1080, 1920)
 WORK_SHAPE = (24, 384, 384, 3)  # the stabilizer's work clip at 1080p
 WORK_SHAPE_RF32 = (24, 512, 512, 3)  # Placebo / VerySlow: render factor 32
@@ -256,6 +299,20 @@ EX_CUTS = [0, 8, 16]  # the exemplar clip's scene changes
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def caller_flags(matmul: str, conv: str):
+    """PyTorch's matmul and cuDNN conv float32 flags set as a caller of the
+    port sets them, restored afterwards."""
+    found = (torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision)
+    torch.backends.cuda.matmul.fp32_precision = matmul
+    torch.backends.cudnn.conv.fp32_precision = conv
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision = \
+            found
 
 
 def fail(msg: str) -> None:
@@ -619,12 +676,14 @@ FILTER_KERNELS = {"scatter_add (histograms)": ("scatter",), "sort (quantiles)": 
                   "gather (LUT, CLAHE lookups)": ("index", "gather")}
 
 
-def phase_profile(path: str, run, wall_s, card: str, kernel: str, groups=None) -> None:
+def phase_profile(path: str, run, wall_s, card: str, kernel: str, groups=None) -> dict:
     """One more run of a path under torch.profiler: the card's busy time
     (the union of its kernel intervals) against the run's wall time, the
     device time summed per kernel, the kernels that take the most, the
-    device time of the port's kernels whose names contain ``kernel``, and
-    of each of ``groups`` (label -> name fragments)."""
+    device time of the port's kernels whose names contain ``kernel``, of
+    each of ``groups`` (label -> name fragments), and the launches of the
+    TF32 tensor-core kernels (names containing ``tf32``).  Returns the
+    row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -635,9 +694,10 @@ def phase_profile(path: str, run, wall_s, card: str, kernel: str, groups=None) -
         profiled_s = time.perf_counter() - t0
     dev = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
     if not dev:
-        emit(dict(phase="profile", path=path, device_time="not measured",
-                  note="torch.profiler recorded no CUDA kernels"))
-        return
+        row = dict(phase="profile", path=path, device_time="not measured",
+                   note="torch.profiler recorded no CUDA kernels")
+        emit(row)
+        return row
     dev.sort(key=lambda a: -a.self_device_time_total)
     device_s = sum(a.self_device_time_total for a in dev) * 1e-6
     busy_us, end_us = 0.0, float("-inf")
@@ -645,19 +705,25 @@ def phase_profile(path: str, run, wall_s, card: str, kernel: str, groups=None) -
                          if e.device_type == DeviceType.CUDA):
         busy_us += max(0.0, hi - max(lo, end_us))
         end_us = max(end_us, hi)
-    emit(dict(phase="profile", path=path, card=card, device_kernel_s=device_s,
-              busy_s=busy_us * 1e-6,
-              profiled_wall_s=profiled_s, busy_share=busy_us * 1e-6 / profiled_s,
-              unprofiled_wall_s=wall_s,
-              kernels=len(dev), launches=sum(a.count for a in dev),
-              top=[dict(name=a.key[:90], s=a.self_device_time_total * 1e-6, count=a.count)
-                   for a in dev[:12]],
-              kernel=kernel, kernel_s=sum(a.self_device_time_total for a in dev
-                                          if kernel in a.key) * 1e-6,
-              kernel_launches={a.key[:60]: a.count for a in dev if kernel in a.key},
-              groups_s={label: sum(a.self_device_time_total for a in dev
-                                   if any(f in a.key for f in frags)) * 1e-6
-                        for label, frags in (groups or {}).items()}))
+    tf32 = [a for a in dev if "tf32" in a.key]
+    row = dict(phase="profile", path=path, card=card, device_kernel_s=device_s,
+               busy_s=busy_us * 1e-6,
+               profiled_wall_s=profiled_s, busy_share=busy_us * 1e-6 / profiled_s,
+               unprofiled_wall_s=wall_s,
+               kernels=len(dev), launches=sum(a.count for a in dev),
+               top=[dict(name=a.key[:90], s=a.self_device_time_total * 1e-6, count=a.count)
+                    for a in dev[:12]],
+               kernel=kernel, kernel_s=sum(a.self_device_time_total for a in dev
+                                           if kernel in a.key) * 1e-6,
+               kernel_launches={a.key[:60]: a.count for a in dev if kernel in a.key},
+               groups_s={label: sum(a.self_device_time_total for a in dev
+                                    if any(f in a.key for f in frags)) * 1e-6
+                         for label, frags in (groups or {}).items()},
+               tf32_launches=sum(a.count for a in tf32),
+               tf32_s=sum(a.self_device_time_total for a in tf32) * 1e-6,
+               tf32_kernels={a.key[:90]: a.count for a in tf32[:8]})
+    emit(row)
+    return row
 
 
 # --- phases 10-13: the classic surface ------------------------------------------------
@@ -1223,15 +1289,19 @@ def wls_profile(t: int, h: int, w: int) -> dict:
 
 def deepex_conv_paths(card: str) -> dict:
     """Every Deep-Exemplar convolution of one batch (4 frames at the Medium
-    216x384, ``frame_colorization_batched``) timed with CUDA events, once
-    through cuDNN and once through PyTorch's own kernels (im2col and
-    SGEMM; direct for the dilated ones), f32 with TF32 off: the
-    measurement behind ``models.deepex._Conv2d``, which runs the undilated
-    ones without cuDNN."""
+    216x384, ``frame_colorization_batched``) timed with CUDA events through
+    cuDNN and through PyTorch's own kernels (im2col and a GEMM; direct for
+    the dilated ones), at each float32 precision the engine runs (IEEE
+    under the caller's IEEE flags, TF32 at the default), inside the
+    engine's ``engine_precision`` as ``deepex_propagate`` runs it: the
+    measurement behind ``models.deepex._Conv2d``, which takes cuDNN at
+    TF32 and, at IEEE, PyTorch's kernels for the undilated ones.  One row
+    a precision; returns them."""
     import torch.nn as nn
 
     from havc_tpu_torch import engines
     from havc_tpu_torch.models import deepex as dx
+    from havc_tpu_torch.utils.precision import TF32, engine_precision
 
     net = engines.registry.deepex("cuda")
     h, w = exemplar_size()
@@ -1248,32 +1318,38 @@ def deepex_conv_paths(card: str) -> dict:
 
         hooks += [m.register_forward_pre_hook(pre),
                   m.register_forward_hook(lambda mod, inp, out, n=name: events[n][1].record())]
-    times, real = {}, dx._Conv2d.forward
+    times, real, enabled = {}, dx._Conv2d.forward, torch.backends.cudnn.enabled
     try:
-        for mode in ("cudnn", "native"):
-            dx._Conv2d.forward = nn.Conv2d.forward
-            with torch.inference_mode(), torch.backends.cudnn.flags(
-                    enabled=mode == "cudnn", benchmark=False, deterministic=False,
-                    allow_tf32=False):
-                for _ in range(2):  # the second call is timed
-                    b_feat = dx.encode_reference(net.vgg, net.warpnet, ib)
-                    dx.frame_colorization_batched(net.vgg, net.warpnet, net.colorvid, lab, ib,
-                                                  ib, b_feat, 1e-10)
-                    torch.cuda.synchronize()
-                    times[mode] = {n: a.elapsed_time(b) for n, (a, b) in events.items()}
+        dx._Conv2d.forward = nn.Conv2d.forward
+        for prec, flags in (("ieee", IEEE_FLAGS), ("tf32", DEFAULT_FLAGS)):
+            for mode in ("cudnn", "native"):
+                with caller_flags(**flags), engine_precision("cuda"), torch.inference_mode():
+                    torch.backends.cudnn.enabled = mode == "cudnn"
+                    for _ in range(2):  # the second call is timed
+                        b_feat = dx.encode_reference(net.vgg, net.warpnet, ib)
+                        dx.frame_colorization_batched(net.vgg, net.warpnet, net.colorvid, lab,
+                                                      ib, ib, b_feat, 1e-10)
+                        torch.cuda.synchronize()
+                        times[prec, mode] = {n: a.elapsed_time(b) for n, (a, b) in events.items()}
     finally:
         dx._Conv2d.forward = real
+        torch.backends.cudnn.enabled = enabled
         for hk in hooks:
             hk.remove()
-    port = {n: times["cudnn" if convs[n].dilation != (1, 1) else "native"][n] for n in convs}
-    top = sorted(convs, key=lambda n: -abs(times["cudnn"][n] - times["native"][n]))[:6]
-    row = dict(phase="deepex_conv_paths", card=card, batch=[4, h, w],
-               cudnn_ms=sum(times["cudnn"].values()), native_ms=sum(times["native"].values()),
-               port_ms=sum(port.values()),
-               top=[dict(conv=n, dilation=convs[n].dilation[0],
-                         cudnn_ms=times["cudnn"][n], native_ms=times["native"][n]) for n in top])
-    emit(row)
-    return row
+    rows = {}
+    for prec in ("ieee", "tf32"):
+        cud, nat = times[prec, "cudnn"], times[prec, "native"]
+        port = {n: cud[n] if convs[n].dilation != (1, 1) or prec == TF32 else nat[n]
+                for n in convs}
+        top = sorted(convs, key=lambda n: -abs(cud[n] - nat[n]))[:6]
+        rows[prec] = dict(phase="deepex_conv_paths", card=card, precision=prec, batch=[4, h, w],
+                          cudnn_ms=sum(cud.values()), native_ms=sum(nat.values()),
+                          port_ms=sum(port.values()),
+                          best_ms=sum(min(cud[n], nat[n]) for n in convs),
+                          top=[dict(conv=n, dilation=convs[n].dilation[0], cudnn_ms=cud[n],
+                                    native_ms=nat[n]) for n in top])
+        emit(rows[prec])
+    return rows
 
 
 def drive_engine_path(ht, pc, wa, card: str, name: str, run, frames_n: int, want: dict,
@@ -1458,7 +1534,25 @@ def classic_test_clip() -> np.ndarray:
     return np.repeat(y, 3, axis=-1)
 
 
+def tf32_parity(name: str, run, out_cpu: np.ndarray) -> None:
+    """``run`` on the card at PyTorch's default flags (the engines on TF32
+    tensor cores) against the CPU's float32 ``out_cpu``, by TF32_RGB."""
+    tol = TF32_RGB[name]
+    with caller_flags(**DEFAULT_FLAGS):
+        out = run(None).frames
+    out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+    d = moved(out_cpu, out, tol["over"])
+    emit(dict(phase="parity_cpu_gpu", path=f"{name}/default_tf32", clip=list(out.shape),
+              moved=d, tol=tol))
+    if not within(d, tol):
+        fail(f"parity_cpu_gpu {name}: the card at the default precision against the CPU {d} "
+             f"(tol {tol})")
+
+
 def phase_parity(ht) -> None:
+    """The test-sized paths on the CPU and on the card under the caller's
+    IEEE flags (the caller enters them); the main path also at the default
+    flags (``tf32_parity``)."""
     from havc_tpu_torch import engines, exemplar
 
     cpu, gpu = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
@@ -1514,6 +1608,8 @@ def phase_parity(ht) -> None:
                      f"(tol {BF16_RGB})")
             if not bf16 and not err <= PARITY_TOL:
                 fail(f"parity_cpu_gpu {name}: max abs err {err} > {PARITY_TOL}")
+            if name == "main_path":
+                tf32_parity(name, run, out_cpu)
     finally:
         engines.registry._cache.clear()
         engines.registry._cache.update(saved)
@@ -1562,7 +1658,9 @@ def phase_engine_parity(ht) -> None:
     values (at most 2 % more than 1e-4 apart, none more than 0.02); the
     hybrid and DeepRemaster, whose ColorMNet and NetworkC run bf16 on the
     card, by ``BF16_RGB`` (their float32 engines on the card are held to
-    the CPU within 1e-4 by ``phase_exemplar_f32_vs_bf16``)."""
+    the CPU within 1e-4 by ``phase_exemplar_f32_vs_bf16``).  Under the
+    caller's IEEE flags (the caller enters them); Deep-Exemplar also at
+    the default flags (``tf32_parity``)."""
     from havc_tpu_torch import engines, exemplar
 
     cpu, gpu = torch.device("cpu"), torch.device("cuda", torch.cuda.current_device())
@@ -1612,6 +1710,8 @@ def phase_engine_parity(ht) -> None:
             if rule == "bf16" and not within(bf16, BF16_RGB):
                 fail(f"parity_cpu_gpu {name}: card bf16 against CPU float32 {bf16} "
                      f"(tol {BF16_RGB})")
+            if name == "deepex_path":
+                tf32_parity(name, run, out_cpu)
     finally:
         engines.registry._cache.clear()
         engines.registry._cache.update(saved)
@@ -2605,7 +2705,9 @@ def phase_exemplar_f32_vs_bf16(ht, pc, wa, card: str, tmp: str) -> dict:
     bf16 output's distance from the float32 one."""
     from havc_tpu_torch import exemplar, streaming
 
-    emit(dict(phase="exemplar_f32_vs_bf16", card=card, test_size=f32_vs_bf16_test_size(card)))
+    with caller_flags(**IEEE_FLAGS):  # float32 on the card against the CPU
+        emit(dict(phase="exemplar_f32_vs_bf16", card=card,
+                  test_size=f32_vs_bf16_test_size(card)))
     frames = torch.from_numpy(scene_clip_1080p()).cuda()
     colored = tinted(frames, 8)
     gray48 = torch.from_numpy(np.repeat(np.stack(list(smooth_frames(SCENE_T, SCENE_PER, 9)))[
@@ -2825,12 +2927,13 @@ def classic_unsharded(frames, do_model, dd_model):
     from havc_tpu_torch.ops.post_chain import post_chain
     from havc_tpu_torch.ops.resize import resize
     from havc_tpu_torch.parallel.mesh import POST_KW
+    from havc_tpu_torch.utils.precision import engine_precision
 
     with torch.inference_mode():
         w = torch.clamp(resize(frames, 384, 384, "spline64"), 0.0, 1.0)
-        merged = merge_ops.combine_models(do.colorize(do_model, w, 24),
-                                          dd.colorize(dd_model, w, 384), method=3,
-                                          b_weight=0.5)
+        with engine_precision(frames.device):  # as the mesh's runners run them
+            a, b = do.colorize(do_model, w, 24), dd.colorize(dd_model, w, 384)
+        merged = merge_ops.combine_models(a, b, method=3, b_weight=0.5)
         out = chroma_resize_restore(frames, post_chain(merged, **POST_KW))
         return out, luma(out).mean()
 
@@ -3044,6 +3147,191 @@ def phase_convert_roundtrip(ht, card: str, tmp: str) -> None:
              f"finite {finite}")
 
 
+# --- phases 32-34: the float32 precision rule ------------------------------------------
+
+
+def phase_precision() -> None:
+    """The engines' resolved float32 precision and PyTorch's flags at
+    PyTorch's defaults and under the caller's IEEE setting, and the flags
+    inside each of the port's two contexts."""
+    from havc_tpu_torch.utils import precision
+
+    def row():
+        with precision.engine_precision("cuda"):
+            engine = precision.fp32_flags()
+        with precision.ieee_precision():
+            pinned = precision.fp32_flags()
+        return dict(engines_cuda=precision.engine_fp32_precision("cuda"),
+                    engines_cpu=precision.engine_fp32_precision("cpu"),
+                    flags=precision.fp32_flags(), in_engine_precision=engine,
+                    in_ieee_precision=pinned)
+
+    at_default = dict(row(), legacy=dict(
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        float32_matmul_precision=torch.get_float32_matmul_precision()))
+    with caller_flags(**IEEE_FLAGS):
+        under_ieee = row()
+    emit(dict(phase="precision", default=at_default, caller_ieee=under_ieee,
+              caller_ieee_flags=IEEE_FLAGS))
+    if at_default["engines_cuda"] != "tf32" or under_ieee["engines_cuda"] != "ieee" or \
+            "ieee" != at_default["engines_cpu"] or set(at_default["in_ieee_precision"].values()) \
+            != {"ieee"}:
+        fail(f"precision: the engines resolve to {at_default['engines_cuda']} at PyTorch's "
+             f"defaults and {under_ieee['engines_cuda']} under the caller's IEEE flags")
+
+
+def tf32_profile(runs: dict) -> dict:
+    """Each of ``runs`` (name -> function) in one torch.profiler session
+    (short sessions one after another lost their kernels), each inside a
+    ``record_function`` range that ends in a device synchronize, so the
+    kernels that ran inside a range are its own: {name: (its result, the
+    launches whose kernel name contains ``tf32``, all launches)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    outs = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, run in runs.items():
+            with record_function(f"case:{name}"):
+                outs[name] = run()
+                torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("case:")]
+    rows = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("case:"):
+            lo, hi = e.time_range.start, e.time_range.end
+            inside = [k for k in kernels if lo <= k.time_range.start and k.time_range.end <= hi]
+            rows[e.name[5:]] = (outs[e.name[5:]], sum("tf32" in k.name for k in inside),
+                                len(inside))
+    return rows
+
+
+def phase_pin_check(card: str) -> None:
+    """With the process at TF32 for matmuls and convolutions, the functions
+    the JAX package pins to HIGHEST at the main and exemplar paths' full
+    width: the main path's chroma restore (a batch of 8 at 384x384 onto
+    1080x1920 luma), ColorMNet's ``bilinear_nchw`` up-samplings and its
+    memory's ``get_similarity`` (Ck 64, 392 query tokens, the working and
+    long-term stores' 13,920 slots).  Each must equal its result under the
+    caller's IEEE flags within PIN_TOL and launch no ``tf32`` kernel.  The
+    same products unpinned (``torch.einsum`` / ``@`` at TF32) are run
+    beside them: their ``tf32`` launches (at least one of them must have
+    some, so the check can see such kernels; cuBLAS may keep a shape off
+    the tensor cores) and their distance from IEEE."""
+    from havc_tpu_torch.filters import chroma_resize_restore
+    from havc_tpu_torch.models.colormnet import get_similarity
+    from havc_tpu_torch.ops.resize import _device_matrix, bilinear_nchw
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    hires, lowres = gray_clip_1080p()[:8], rand(8, 384, 384, 3)
+    logits, feats = rand(2, 1, 56, 112), rand(1, 384, 16, 32)
+    mk, ms, qk, qe = rand(13920, 64), rand(13920), rand(392, 64), rand(392, 64)
+    wh = _device_matrix(384, MAIN_SHAPE[1], "spline64", True, torch.device("cuda"))
+    cases = {
+        "chroma_resize_restore": (lambda: chroma_resize_restore(hires, lowres),
+                                  lambda: torch.einsum("oh,...hwc->...owc", wh, lowres)),
+        "bilinear_nchw/decoder_x4": (lambda: bilinear_nchw(logits, 224, 448), None),
+        "bilinear_nchw/dino_x2": (lambda: bilinear_nchw(feats, 32, 64), None),
+        "get_similarity": (lambda: get_similarity(mk, ms, qk, qe),
+                           lambda: mk @ qe.transpose(-1, -2)),
+    }
+    with caller_flags(**IEEE_FLAGS):
+        want = {name: run() for name, (run, _) in cases.items()}
+        want.update({f"{name}/unpinned": unpinned() for name, (_, unpinned) in cases.items()
+                     if unpinned is not None})
+    runs = {name: run for name, (run, _) in cases.items()}
+    runs.update({f"{name}/unpinned": unpinned for name, (_, unpinned) in cases.items()
+                 if unpinned is not None})
+    with caller_flags(**PROCESS_TF32):
+        got = tf32_profile(runs)
+    rows, bad = {}, []
+    for name in cases:
+        out, tf32, launches = got[name]
+        err = (out - want[name]).abs().max().item()
+        rows[name] = dict(shape=list(out.shape), max_abs_vs_ieee=err, tf32_launches=tf32,
+                          launches=launches)
+        if f"{name}/unpinned" in got:
+            u_out, u_tf32, _ = got[f"{name}/unpinned"]
+            rows[name].update(unpinned_tf32_launches=u_tf32, unpinned_max_abs_vs_ieee=(
+                u_out - want[f"{name}/unpinned"]).abs().max().item())
+        if not err <= PIN_TOL or tf32 or not launches:
+            bad.append(f"{name}: {rows[name]}")
+    if not any(r.get("unpinned_tf32_launches") for r in rows.values()):
+        bad.append("no unpinned product launched a tf32 kernel: the check cannot see them")
+    emit(dict(phase="pin_check", card=card, process_flags=PROCESS_TF32, tol=PIN_TOL,
+              results=rows))
+    if bad:
+        fail("pin_check: " + "; ".join(bad))
+
+
+def phase_classic_tf32_vs_ieee(ht, card: str) -> None:
+    """``HAVC_main`` at 1080p (the main path), Placebo and
+    ``HAVC_main(EnableDeepEx=True, DeepExModel=1)`` at PyTorch's default
+    flags (the engines on TF32 tensor cores) and under the caller's IEEE
+    flags, after a warm-up call of each, timed in turns default, IEEE,
+    IEEE, default: wall times, fps, peak memory, the stage times of one
+    more stage-timed call at each, and the share of the output's values
+    that the precision moves.  Then the main path's profile under IEEE,
+    which must launch no ``tf32`` kernel."""
+    from havc_tpu_torch.utils import enable_profiling, reset_stages, stage_times
+
+    main_frames = gray_clip_1080p()
+    ex_frames = torch.from_numpy(scene_clip_1080p()).cuda()
+    n = MAIN_SHAPE[0]
+    paths = {
+        "main_path": lambda: ht.HAVC_main(ht.Clip(frames=main_frames)).frames,
+        "placebo_path": lambda: ht.HAVC_main(ht.Clip(frames=main_frames), **PLACEBO_KW).frames,
+        "deepex_path": lambda: ht.HAVC_main(ht.Clip(frames=ex_frames), EnableDeepEx=True,
+                                            DeepExModel=1).frames,
+    }
+    modes = {"default": DEFAULT_FLAGS, "ieee": IEEE_FLAGS}
+    for name, run in paths.items():
+        warm_s = {}
+        for mode, flags in modes.items():
+            with caller_flags(**flags):
+                _, warm_s[mode] = timed(run)
+        walls, outs, peaks, stages = {m: [] for m in modes}, {}, {}, {}
+        for mode in ("default", "ieee", "ieee", "default"):
+            torch.cuda.reset_peak_memory_stats()
+            with caller_flags(**modes[mode]):
+                outs[mode], wall_s = timed(run)
+            walls[mode].append(wall_s)
+            peaks[mode] = torch.cuda.max_memory_allocated()
+        for mode, flags in modes.items():
+            enable_profiling(True)
+            reset_stages()
+            with caller_flags(**flags):
+                timed(run)
+            enable_profiling(False)
+            stages[mode] = {k: v[0] for k, v in stage_times().items()}
+        med = {m: statistics.median(w) for m, w in walls.items()}
+        dist = moved(outs["ieee"], outs["default"], 1e-2)
+        emit(dict(phase="classic_tf32_vs_ieee", card=card, path=name, frames=n, warmup_s=warm_s,
+                  wall_s_default=walls["default"], wall_s_ieee=walls["ieee"],
+                  fps_default=n / med["default"], fps_ieee=n / med["ieee"],
+                  ieee_over_default=med["ieee"] / med["default"],
+                  peak_bytes_default=peaks["default"], peak_bytes_ieee=peaks["ieee"],
+                  stages_s_default=stages["default"], stages_s_ieee=stages["ieee"],
+                  default_vs_ieee=dist))
+        finite = all(bool(torch.isfinite(o).all().item()) for o in outs.values())
+        if not finite or dist["max_abs"] == 0.0:
+            fail(f"classic_tf32_vs_ieee {name}: finite {finite}, default against IEEE {dist} "
+                 f"(0 would mean the engines ran IEEE at the default)")
+        del outs
+    with caller_flags(**IEEE_FLAGS):
+        row = phase_profile("main_path/ieee", paths["main_path"], None, card, "post_chain")
+    if row.get("tf32_launches", 1):
+        fail(f"main_path/ieee: {row.get('tf32_launches')} tf32 launches under the caller's "
+             f"IEEE flags")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -3052,15 +3340,12 @@ def main() -> None:
     from havc_tpu_torch.ops import post_chain as pc
     from havc_tpu_torch.ops import window_attn as wa
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = smi_name_and_limit()
     emit(dict(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), host_cpus=os.cpu_count(),
               torch_cpu_threads=torch.get_num_threads(), torch=torch.__version__,
-              cuda=torch.version.cuda, python=sys.version.split()[0],
-              matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-              cudnn_allow_tf32=torch.backends.cudnn.allow_tf32))
+              cuda=torch.version.cuda, python=sys.version.split()[0]))
+    phase_precision()
 
     t0 = time.perf_counter()
     kernels.build_all()
@@ -3085,8 +3370,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_restore_format(ht, main_out.frames, main_out.fps, smi, tmp)
     del main_out
-    phase_profile("main_path", lambda: ht.HAVC_main(ht.Clip(frames=frames)), wall_s, smi,
-                  "post_chain", FILTER_KERNELS)
+    row = phase_profile("main_path", lambda: ht.HAVC_main(ht.Clip(frames=frames)), wall_s, smi,
+                        "post_chain", FILTER_KERNELS)
+    if not row.get("tf32_launches"):
+        fail("main_path: no tf32 kernel at PyTorch's default flags: the engines ran IEEE")
     del frames
     for name, kw, want in (("placebo_path", PLACEBO_KW, 1), ("veryslow_path", VERYSLOW_KW, 2)):
         by_path[name], run_classic, cl_wall_s = phase_classic_path(ht, pc, wa, smi, name, kw, want)
@@ -3104,17 +3391,23 @@ def main() -> None:
     del run_ct
     by_path["frameinterp_path"], _, _ = phase_frameinterp_path(ht, pc, wa, smi)
     by_path.update(phase_engine_paths(ht, pc, wa, smi))
-    with tempfile.TemporaryDirectory() as tmp:
+    phase_classic_tf32_vs_ieee(ht, smi)
+    phase_pin_check(smi)
+    # the CPU <-> card comparisons and the sharded-against-unsharded ones
+    # run under the caller's IEEE flags and keep their float32 bounds
+    with tempfile.TemporaryDirectory() as tmp, caller_flags(**IEEE_FLAGS):
         by_path.update(phase_scene_detectors(ht, pc, wa, smi, tmp))
     by_path.update(phase_overlay_degrain(ht, pc, wa, smi))
     by_path.update(phase_legacy_paths(ht, pc, wa, smi))
     by_path.update(phase_scene_parallel_path(ht, pc, wa, smi))
-    by_path.update(phase_mesh_paths(ht, pc, wa, smi))
+    with caller_flags(**IEEE_FLAGS):
+        by_path.update(phase_mesh_paths(ht, pc, wa, smi))
     with tempfile.TemporaryDirectory() as tmp:
         phase_convert_roundtrip(ht, smi, tmp)
-    phase_parity(ht)
-    phase_engine_parity(ht)
-    phase_leftover_parity(ht)
+    with caller_flags(**IEEE_FLAGS):
+        phase_parity(ht)
+        phase_engine_parity(ht)
+        phase_leftover_parity(ht)
     has_cv2 = importlib.util.find_spec("cv2") is not None
     with tempfile.TemporaryDirectory() as tmp:
         if not has_cv2:
@@ -3126,7 +3419,8 @@ def main() -> None:
         del run_stream
         _, _, by_path["streaming_tuned"] = phase_streaming_tuned(
             ht, pc, wa, smi, f"{tmp}/stream_gray.y4m", tmp)
-        phase_streaming_parity(tmp)
+        with caller_flags(**IEEE_FLAGS):
+            phase_streaming_parity(tmp)
         run_restore, rs_wall_s, by_path["restore_streaming"] = phase_restore_streaming(
             pc, wa, smi, tmp)
         phase_profile("restore_streaming", run_restore, rs_wall_s, smi, "window_attn")

@@ -12,7 +12,9 @@ initialisers), and ``random_init_used`` is set.
 ``make_deoldify_fn`` / ``make_ddcolor_fn`` return ``fn(frames)`` over
 ``(B, H, W, 3)`` tensors on the engine's device; ``make_ddcolor_fn`` also
 runs the Zhang nets (DDColor model ids 2 and 3) and the tweak, retinex
-and denoise filters around the engine.
+and denoise filters around the engine.  The networks run inside
+``utils.precision.engine_precision`` (TF32 on the card unless the caller
+set PyTorch's flags to IEEE), the filters around them at IEEE float32.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from .filters import constrained_tweak, recover_clip_luma
 from .ops import equalize
 from .ops.chroma import chroma_tweak
 from .ops.chroma import tweak as op_tweak
+from .utils.precision import engine_precision
 from .utils.profiling import on_device, resolve_device
 
 __all__ = [
@@ -191,14 +194,15 @@ def make_deoldify_fn(model: int = 0, render_factor: int = 24, device=None) -> Ca
     names = {0: "video", 1: "stable", 2: "artistic"}
     name = names.get(model, "video")
     m = registry.deoldify(name, device)
-    if name == "video":
-        return lambda frames: do.colorize(m, frames, render_factor=render_factor)
-    mv = registry.deoldify("video", device)
+    mv = None if name == "video" else registry.deoldify("video", device)
     w = DEF_STABLE_WEIGHT if name == "stable" else DEF_ARTISTIC_WEIGHT
 
     def fn(frames):
-        out = do.colorize(m, frames, render_factor=render_factor)
-        out_video = do.colorize(mv, frames, render_factor=render_factor)
+        with engine_precision(frames.device):
+            out = do.colorize(m, frames, render_factor=render_factor)
+            if mv is None:
+                return out
+            out_video = do.colorize(mv, frames, render_factor=render_factor)
         return out_video * (1 - w) + out * w
 
     return fn
@@ -267,7 +271,8 @@ def make_ddcolor_fn(
                 )
             else:
                 x = op_tweak(x, bright=bright, cont=cont, gamma=gamma)
-        out = core(x)
+        with engine_precision(x.device):
+            out = core(x)
         if hue_adjust not in ("none", ""):
             out = chroma_tweak(out, hue_adjust=hue_adjust)
         if denoise_enabled:
@@ -303,7 +308,9 @@ def zhang_frames(frames: torch.Tensor, model_name: str = "siggraph17", frame_siz
     ``frame_size``."""
     from .models import zhang as zh
 
-    return zh.colorize(registry.zhang(model_name, device), frames, input_size=frame_size)
+    m = registry.zhang(model_name, device)
+    with engine_precision(frames.device):
+        return zh.colorize(m, frames, input_size=frame_size)
 
 
 @torch.inference_mode()

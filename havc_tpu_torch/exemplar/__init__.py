@@ -31,7 +31,9 @@ in bf16 on its accelerator (``device.type == "cuda"`` stands for its
 ``jax.default_backend() == "tpu"``).  The engine casts its network's
 float tensors once; the propagations cast their inputs at the engine's
 door and return float32.  Deep-Exemplar stays float32, as in the JAX
-package.
+package.  A float32 network runs inside ``utils.precision.engine_precision``
+(TF32 on the card unless the caller set PyTorch's flags to IEEE); a bf16
+one runs its products in bf16, or at IEEE float32 where pinned.
 
 In vivid mode every reference rebuilds ColorMNet's core, so the scenes
 are independent: ``colormnet_propagate_scenes`` runs them all in one step
@@ -48,6 +50,7 @@ Entry points: ``HAVC_deepex`` (methods 0-6), ``HAVC_cmnet2``,
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import warnings
 from typing import Optional
@@ -69,6 +72,7 @@ from ..ops.resize import resize, smart_resize_pad, smart_resize_restore
 from ..presets import get_colormap
 from ..scene.detect import scene_detect
 from ..utils.log import HAVC_LogMessage, MessageType
+from ..utils.precision import engine_precision
 from ..utils.profiling import resolve_device, stage_timer
 from .allrefs import allrefs_feed_schedule, allrefs_step_schedule
 
@@ -148,6 +152,14 @@ def _cast_net(net: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     parameters and buffers cast to ``dtype`` (the registry's stays
     float32 for other engines)."""
     return net if dtype == torch.float32 else copy.deepcopy(net).to(dtype)
+
+
+def _float32_precision(engine):
+    """``engine_precision`` for an engine whose network runs float32; a
+    bf16 network's products are bf16 or pinned to IEEE float32."""
+    if getattr(engine, "dtype", torch.float32) == torch.float32:
+        return engine_precision(engine.device)
+    return contextlib.nullcontext()
 
 
 def pad112_geometry(wh: int, ww: int):
@@ -403,7 +415,7 @@ def colormnet_propagate(
                if exemplar_insert else {})
     step = _build_cm_step(engine, vivid, frame_propagate)
 
-    with torch.inference_mode():
+    with torch.inference_mode(), _float32_precision(engine):
         xs, ref_pre, (lh, lw, fh, fw) = _cm_prepare(engine, frames, _as_tensor(ref_ab, dev),
                                                     ref_frames,
                                                     ref_idx)
@@ -485,7 +497,7 @@ def colormnet_propagate_scenes(
     S_pad = -(-S // n_data) * n_data
     rows = [(starts[i], lengths[i]) if i < S else (starts[0], lengths[0]) for i in range(S_pad)]
 
-    with torch.inference_mode():
+    with torch.inference_mode(), _float32_precision(engine):
         xs, ref_pre, (lh, lw, fh, fw) = _cm_prepare(engine, frames, _as_tensor(ref_ab, dev),
                                                     ref_frames, starts)
         # (L, S_pad) step-major frame index: scene i's frame min(l, len - 1),
@@ -589,7 +601,8 @@ def deepex_propagate(
         if s1 <= s0:
             continue
         ib_lab = rgb_to_lab(refs[s0:s0 + 1])
-        b_feat = dx.encode_reference(engine.vgg, engine.warp, ib_lab)
+        with engine_precision(dev):
+            b_feat = dx.encode_reference(engine.vgg, engine.warp, ib_lab)
         if frame_propagate:
             last_lab = ib_lab
         else:
@@ -603,9 +616,10 @@ def deepex_propagate(
             if n < batch_size:
                 chunk = torch.cat([chunk, chunk[-1:].expand(batch_size - n, -1, -1, -1)])
             # one slice of the batch per data shard, each on its device
-            ab = [dx.frame_colorization_batched(
-                *on[d], chunk[k * per:(k + 1) * per].to(d, non_blocking=True), *ref_on[d],
-                temperature) for k, d in enumerate(devs)]
+            with engine_precision(dev):
+                ab = [dx.frame_colorization_batched(
+                    *on[d], chunk[k * per:(k + 1) * per].to(d, non_blocking=True), *ref_on[d],
+                    temperature) for k, d in enumerate(devs)]
             ab = torch.cat([a.to(dev, non_blocking=True) for a in ab])
             ab_chunks.append(ab[:n])
     ab_seq = torch.cat(ab_chunks)
@@ -708,7 +722,7 @@ def remaster_propagate(
         while j < len(starts) and win_starts[j] == ws and j - i < group:
             j += 1
         if ws not in ref_cache:  # only the current window's encoding is kept
-            with stage_timer("remaster_encode_refs"):
+            with stage_timer("remaster_encode_refs"), _float32_precision(engine):
                 window = refs[ws:ws + S].permute(3, 0, 1, 2)[None].to(dtype)
                 feats = engine.model.encode_refs(window)
                 ref_cache = {ws: {dev: feats} if mesh is None else replicate(feats, mesh)}
@@ -720,7 +734,7 @@ def remaster_propagate(
             chunks.append(c)
         n_real = len(chunks)
         chunks += [chunks[-1]] * (group - n_real)
-        with stage_timer("remaster_windows"):
+        with stage_timer("remaster_windows"), _float32_precision(engine):
             batch = torch.stack(chunks).permute(0, 4, 1, 2, 3).to(dtype)  # (G, 1, T, H, W)
             ab01g = [on[d].colorize_with_refs(batch[k * per:(k + 1) * per].to(
                 d, non_blocking=True), *ref_cache[ws][d]) for k, d in enumerate(devs)]

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.resize import bilinear_nchw
 from ..ops.window_attn import window_attn
+from ..utils.precision import ieee_precision
 from .resnet import RESNET_CONFIGS, ResNetBody
 from .vit import LN_EPS, DinoSegmentor
 
@@ -363,16 +364,18 @@ def stable_top_k(x: torch.Tensor, k: int):
     return values[..., :k], idx[..., :k]
 
 
+@ieee_precision()
 def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor], qk: torch.Tensor,
                    qe: Optional[torch.Tensor]) -> torch.Tensor:
     """Anisotropic L2 similarity.  mk (N, Ck) memory keys, ms (N,)
     shrinkage, qk (P, Ck) query keys, qe (P, Ck) selection -> (N, P)
     float32; with leading batch axes on all four, batched products.
 
-    The products run in float32 whatever the stores' dtype, as the JAX
-    package's ``preferred_element_type=jnp.float32, precision=HIGHEST``
-    contractions do: a bf16 product would round the similarities to bf16
-    and turn the top-k into near-ties.  Their operands ``mk ** 2`` and
+    The products run in IEEE float32 whatever the stores' dtype and the
+    process's flags, as the JAX package's ``preferred_element_type=
+    jnp.float32, precision=HIGHEST`` contractions do: a bf16 (or TF32)
+    product would round the similarities and turn the top-k into
+    near-ties.  Their operands ``mk ** 2`` and
     ``qk * qe`` are formed in the stores' dtype first, as the jitted JAX
     function forms them; ``b_sq`` is summed from the float32 values (XLA
     fuses that reduction)."""

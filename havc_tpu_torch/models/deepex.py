@@ -14,15 +14,20 @@ Port of ``havc_tpu.models.deepex``:
 * ``ColorVidNet``: ``cat(L - 50, warped ab, similarity, last LAB - (50,
   0, 0))`` -> ab in (-128, 128).
 
-On the card every convolution but the dilated ones runs without cuDNN
-(``_Conv2d``): in float32 without TF32, cuDNN's heuristics pick FFT or
-slow implicit-GEMM algorithms for several 3x3 convolutions at 1/2 and 1/4
-size, while PyTorch's own dilated convolution is 25 times slower than
-cuDNN's.  On an H100 (700 W) one batch of four frames at 216x384 spent
-556 ms in the convolutions through cuDNN (ColorVidNet's ``conv9_1``
-alone 390 ms), 176 ms through PyTorch's kernels and 48.5 ms with this
-split (``chip_smoke.py``'s ``deepex_conv_paths`` measures it on every
-run).
+The engine runs inside ``utils.precision.engine_precision``: TF32 on the
+card by default (the JAX package runs these convolutions at XLA's
+DEFAULT precision), IEEE float32 when the caller sets PyTorch's flags so.
+``_Conv2d`` picks the faster route at each: at TF32 every convolution
+runs through cuDNN; at IEEE float32 every one but the dilated ones runs
+without cuDNN, whose heuristics then pick FFT or slow implicit-GEMM
+algorithms for several 3x3 convolutions at 1/2 and 1/4 size, while
+PyTorch's own dilated convolution is 25 times slower than cuDNN's.
+``chip_smoke.py``'s ``deepex_conv_paths`` times one batch of four frames
+at 216x384 both ways at both precisions on every run.  On an H100
+(700 W): at TF32 10.4-13.3 ms through cuDNN against 151-211 ms through
+PyTorch's kernels; at IEEE 375-578 ms through cuDNN (ColorVidNet's
+``conv9_1`` alone up to 396 ms), 130-211 ms through PyTorch's kernels
+and 48.4-48.6 ms with the split.
 
 The LAB-level functions (``frame_colorization``,
 ``frame_colorization_batched``, ``encode_reference``,
@@ -42,6 +47,7 @@ import torch.nn.functional as F
 
 from ..ops.colorspace import lab_to_rgb
 from ..ops.retinex import _box_filter_1d
+from ..utils.precision import TF32
 from ..utils.profiling import stage_timer
 
 __all__ = [
@@ -100,11 +106,13 @@ def _up(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class _Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that runs a CUDA input without cuDNN unless it is
-    dilated (see the module docstring for the measurement)."""
+    """``nn.Conv2d`` that runs a CUDA input without cuDNN when it is
+    undilated and cuDNN's convolutions are not at TF32 (see the module
+    docstring for the measurement)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not x.is_cuda or self.dilation != (1, 1):
+        if not x.is_cuda or self.dilation != (1, 1) or \
+                torch.backends.cudnn.conv.fp32_precision == TF32:
             return super().forward(x)
         enabled = torch.backends.cudnn.enabled
         torch.backends.cudnn.enabled = False

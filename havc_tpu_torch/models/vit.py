@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import bilinear_nchw
+from ..utils.precision import ieee_precision
 
 __all__ = ["ViT", "VIT_CONFIGS", "DinoSegmentor", "torch_bicubic_matrix"]
 
@@ -142,8 +143,9 @@ class ViT(nn.Module):
             grid = pos_patch.reshape(g0, g0, self.dim).float()
             mh = _bicubic_device(g0, gh, (gh + 0.1) / g0, x.device)
             mw = _bicubic_device(g0, gw, (gw + 0.1) / g0, x.device)
-            grid = torch.einsum("oh,hwc->owc", mh, grid)
-            grid = torch.einsum("pw,owc->opc", mw, grid)
+            with ieee_precision():  # the JAX package's bicubic is exact mul-adds
+                grid = torch.einsum("oh,hwc->owc", mh, grid)
+                grid = torch.einsum("pw,owc->opc", mw, grid)
             pos_patch = grid.reshape(1, gh * gw, self.dim).to(pos_cls.dtype)
         x = torch.cat([self.cls_token.expand(b, 1, self.dim).to(x.dtype), x], dim=1)
         x = x + torch.cat([pos_cls, pos_patch], dim=1).to(x.dtype)

@@ -27,6 +27,7 @@ from .chroma import (adjust_chroma, mask_merge, parse_hue_ranges, restore_color,
                      restore_color_gradient, tweak, weighted_merge)
 from .colorspace import luma, rgb_to_yuv, yuv_to_rgb
 from .resize import resize
+from ..utils.precision import ieee_precision
 
 __all__ = [
     "simple_merge",
@@ -183,9 +184,11 @@ def _laplacian_kernel(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
                         dtype=dtype, device=device)
 
 
+@ieee_precision()
 def _laplacian(y: torch.Tensor) -> torch.Tensor:
     """3x3 Laplacian (cv2.Laplacian's default kernel) with a replicated
-    border, as a depthwise convolution over (..., H, W)."""
+    border, as a depthwise convolution over (..., H, W), at IEEE float32:
+    a filter outside the engines computes as on the CPU."""
     x = y.reshape((-1, 1) + tuple(y.shape[-2:]))
     x = torch.nn.functional.pad(x, (1, 1, 1, 1), mode="replicate")
     k = _laplacian_kernel(y.dtype, y.device)

@@ -15,6 +15,12 @@ feature maps, which differs from both the matrices above and
 renormalises over the in-frame taps instead of replicating the edge.
 ``smart_resize_pad`` / ``smart_resize_restore`` are the exemplar path's
 aspect-preserving work geometry.
+
+Both products run at IEEE float32 whatever the process's flags
+(``utils.precision.ieee_precision``), as the JAX package pins
+``Precision.HIGHEST`` on its resizes and ``jax.image.resize`` does by
+default: at TF32 the chroma restore onto full-resolution luma would lose
+chroma fidelity.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.precision import ieee_precision
 
 __all__ = ["resize", "resize_kernel_matrix", "KERNELS", "bilinear_nchw", "PadMeta",
            "smart_resize_pad", "smart_resize_restore", "pad_to_square", "unpad_from_square"]
@@ -141,6 +149,7 @@ def _device_matrix(in_size: int, out_size: int, kernel: str, antialias: bool,
     ).to(device)
 
 
+@ieee_precision()
 def resize(
     img: torch.Tensor,
     height: int,
@@ -190,6 +199,7 @@ def _jax_linear_device(in_size: int, out_size: int, device: torch.device,
     return torch.from_numpy(_jax_linear_matrix(in_size, out_size)).to(device).to(dtype)
 
 
+@ieee_precision()
 def bilinear_nchw(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """``jax.image.resize(x, ..., "bilinear")`` over the H, W axes of an
     NCHW tensor, as two matrix products in x's dtype (float32 weights cast

@@ -29,13 +29,16 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils.precision import ieee_precision
 
 __all__ = ["window_attn", "window_attn_cuda", "window_attn_reference"]
 
 
+@ieee_precision()
 def window_attn_reference(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
     """Unfold-einsum version: the windows of k and v are materialised,
-    in float32 whatever the inputs' type."""
+    in IEEE float32 whatever the inputs' type and the process's flags
+    (the kernel is held against it)."""
     q, k, v, rel = (t.float() for t in (q, k, v, rel))
     win = 2 * max_dis + 1
     b, h, w, _ = q.shape

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.precision import engine_precision
+
 __all__ = [
     "Mesh",
     "Sharded",
@@ -280,12 +282,14 @@ class _Bound(nn.Module):
 
 def _runner(model: nn.Module, fn: Callable, mesh: Mesh):
     """``run(params, x, device)``: ``fn(model, x)`` on ``device`` with the
-    state dict ``params`` (copied there) in place of the model's weights."""
+    state dict ``params`` (copied there) in place of the model's weights,
+    inside ``engine_precision(device)``."""
     bound = {dev: _Bound(m, fn) for dev, m in replicate(model, mesh).items()}
 
     def run(params, x, dev):
         p = {f"model.{k}": v for k, v in _tree_to(dict(params), dev).items()}
-        return torch.func.functional_call(bound[dev], p, (x,))
+        with engine_precision(dev):
+            return torch.func.functional_call(bound[dev], p, (x,))
 
     return run
 

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ..clip import SceneFlags
 from ..ops.resize import resize
+from ..utils.precision import ieee_precision
 from ..utils.profiling import on_device
 from .detect import DEF_THT_WHITE, _ssim_uniform, _work_size
 
@@ -59,9 +60,12 @@ def _correlate(xp: torch.Tensor, k: np.ndarray, h: int, w: int) -> torch.Tensor:
     return out
 
 
+@ieee_precision()
 def _conv2d(x: torch.Tensor, bank: np.ndarray) -> torch.Tensor:
     """(T, H, W) correlated with a bank of (N, 3, 3) kernels over the
-    edge-replicated border -> (T, N, H, W)."""
+    edge-replicated border -> (T, N, H, W).  Pinned to IEEE float32 (its
+    mul-adds read no flag today): the detectors' strict thresholds must
+    decide on the card as on the CPU."""
     h, w = x.shape[-2:]
     xp = F.pad(x[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
     return torch.stack([_correlate(xp, k, h, w) for k in bank], dim=1)
