@@ -14,7 +14,7 @@ JSON line; any failure exits non-zero:
    (``havc_tpu_torch/utils/precision.py``).  ColorMNet and DeepRemaster
    run at the card's default precision, bf16, on every path below (each
    phase fails when a float32 engine or window attention's float32
-   instantiation runs there); phase 31 runs them at float32 too.  The
+   kernels run there); phase 31 runs them at float32 too.  The
    CPU<->card comparisons (phases 7, 23's flags and statistics, the
    streaming and leftover parity, phase 31's test size) and the mesh
    paths (29) run under the caller's IEEE flags
@@ -25,15 +25,19 @@ JSON line; any failure exits non-zero:
    at its path's shape and at ragged, misaligned and odd ones, with
    CUDA-event timings (median of 10 batches of 20 calls) beside the card's
    bound and, where one PyTorch call computes the same function, that
-   call's time; window attention's two launches (weights, weighted sum)
-   also timed apart; the post chain's range-limited forms checked over
-   every float of their ranges; window attention also at the
-   scene-batched scan's B = 6, and its bf16 instantiation on bf16 inputs
-   (the path shape, B = 6, the scalar paths) against the plain version on
-   the same bf16 values, with ``scaled_dot_product_attention`` on them.
+   call's time; the post chain's range-limited forms checked over every
+   float of their ranges.  Window attention: its float32 kernels (two
+   launches: weights, weighted sum, also timed apart) and its bf16 kernel
+   (one launch on the tensor cores, ``csrc/window_attn_tc.cu``) on the
+   same shapes in their types (the path shape, the scene-batched scan's
+   B = 6, render speed "slower"'s 28 x 42 grid, the scalar paths), each
+   against the plain version on the same values, with
+   ``scaled_dot_product_attention`` on them; the bf16 rows bound by the
+   bf16 tensor-core rate, the float32 rows by the float32 one.
    The ``build`` line before it gives each
    kernel function's registers, stack, spills and static shared memory
-   (``-Xptxas -v``) and its SASS instruction count (``cuobjdump``).
+   (``-Xptxas -v``), its SASS instruction count (``cuobjdump``) and the bf16
+   window attention's dynamic shared memory at its shapes.
 3. ``main_path``: ``havc_tpu_torch.HAVC_main(clip)`` with its defaults on a
    seeded 24-frame 1080x1920 gray clip held as CUDA tensors, with
    full-width DeOldify Video and DDColor Artistic (seeded random weights
@@ -197,8 +201,8 @@ JSON line; any failure exits non-zero:
     from the CPU (``BF16_AB``, ``BF16_RGB``); then the exemplar path, the
     scene-batched ``HAVC_deepex``, ``HAVC_DeepRemaster`` and the ColorMNet
     restore stream at full width with the default engines and with float32
-    ones, in turns: wall times and fps of both, launches of each window
-    attention instantiation, 0 host syncs in the scans at bf16, the bf16
+    ones, in turns: wall times and fps of both, calls of each window
+    attention kernel, 0 host syncs in the scans at bf16, the bf16
     output's distance from the float32 one (the float32 engines at the
     default flags: TF32).
 32. ``precision`` (right after ``device``): the engines' resolved float32
@@ -236,9 +240,10 @@ Deep-Exemplar also at the default flags against the CPU (``TF32_RGB``).
 Each kernel's ``launches_by_path`` gives its launches on every path
 driven (counts zeroed just before each path and read just after;
 ``exemplar_sources`` sums its three calls); window attention's two
-instantiations are two rows, ``window_attn`` (float32 inputs, its
-``launches`` from phase 31's float32 exemplar path) and
-``window_attn_bf16`` (its ``launches`` from the exemplar path).
+kernels are two rows, ``window_attn`` (float32 inputs,
+``csrc/window_attn.cu``, its ``launches`` the calls on phase 31's float32
+exemplar path) and ``window_attn_bf16`` (``csrc/window_attn_tc.cu``, its
+``launches`` from the exemplar path).
 
 Then the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power-limit line, and last the result line.  Without CUDA, or without the
@@ -264,6 +269,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 H100_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = 1e-5
 PARITY_TOL = 1e-4
 # ColorMNet and DeepRemaster run bf16 on the card by default and float32 on
@@ -510,24 +516,32 @@ def window_sdpa_mask(rel):
     return torch.where(inside[None], vals, -torch.inf)[:, None]
 
 
+WINDOW_ATTN_SHAPES = {"path": (1, 14, 28, 64, 1024), "slower": (1, 28, 42, 64, 1024)}
+
+
 def phase_window_attn(wa, card: str) -> list:
-    """Both instantiations against the plain version on the same inputs
-    (bf16 ones: the plain version upcasts the same bf16 values, so the
-    float32 tolerance holds).  Returns the summary rows of the float32
-    and the bf16 instantiation (the path shape's numbers)."""
+    """Both kernels against the plain version on the same inputs (bf16
+    ones: the plain version upcasts the same bf16 values, so the float32
+    tolerance holds).  Returns the summary rows of the float32 and the
+    bf16 kernel (the path shape's numbers)."""
     import torch.nn.functional as F
 
     # path, batch 4, a width that is not a multiple of the 4-pixel tile,
-    # channel counts that take the kernels' 4-byte paths, the odd test
-    # shape, and the scene-batched scan's B = S (six scenes); on bf16
-    # inputs the path, the scene batch and the 2-byte scalar paths
+    # channel counts that take the float32 kernels' 4-byte paths, the odd
+    # test shape, the scene-batched scan's B = S (six scenes) and render
+    # speed "slower" (360x640 padded to 448x672: a 28 x 42 grid); on bf16
+    # inputs the path, the scene batch, the slower shape and the scalar
+    # shape (element-by-element copies)
     f32, b16 = torch.float32, torch.bfloat16
-    cases = [("path", (1, 14, 28, 64, 1024), 0, f32), ("batched", (4, 14, 28, 64, 1024), 1, f32),
+    cases = [("path", WINDOW_ATTN_SHAPES["path"], 0, f32),
+             ("batched", (4, 14, 28, 64, 1024), 1, f32),
              ("ragged", (1, 14, 27, 64, 1024), 2, f32), ("scalar", (2, 5, 11, 6, 10), 3, f32),
              ("odd", (2, 6, 9, 16, 32), 0, f32),
              ("scene_batch", (SCENE_S, 14, 28, 64, 1024), 4, f32),
-             ("path_bf16", (1, 14, 28, 64, 1024), 0, b16),
+             ("slower", WINDOW_ATTN_SHAPES["slower"], 5, f32),
+             ("path_bf16", WINDOW_ATTN_SHAPES["path"], 0, b16),
              ("scene_batch_bf16", (SCENE_S, 14, 28, 64, 1024), 4, b16),
+             ("slower_bf16", WINDOW_ATTN_SHAPES["slower"], 5, b16),
              ("scalar_bf16", (2, 5, 11, 6, 10), 3, b16)]
     rows, worst, main = [], {f32: 0.0, b16: 0.0}, {}
     for name, (b, h, w, d_qk, d_vu), seed, dtype in cases:
@@ -535,7 +549,7 @@ def phase_window_attn(wa, card: str) -> list:
         before = wa.window_attn_cuda.launches_bf16
         got = wa.window_attn_cuda(q, k, v, rel)
         if wa.window_attn_cuda.launches_bf16 - before != (dtype == b16):
-            fail(f"window_attn {name}: the {dtype} inputs did not reach their instantiation")
+            fail(f"window_attn {name}: the {dtype} inputs did not reach their kernel")
         want = wa.window_attn_reference(q, k, v, rel)
         mask = window_sdpa_mask(rel).to(dtype)
 
@@ -548,42 +562,58 @@ def phase_window_attn(wa, card: str) -> list:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         worst[dtype] = max(worst[dtype], err)
-        # each input read once in its type, the float32 output written once
+        # each input read once in its type, the float32 output written
+        # once; operations over the in-frame (pixel, offset) pairs: the
+        # float32 kernels 2 (d_qk + d_vu) at the float32 rate, the bf16
+        # one 2 (d_qk + 2 d_vu) (the weights' two bf16 terms) at the bf16
+        # tensor-core rate
         n_bytes = b * h * w * (q.element_size() * (2 * d_qk + WIN * WIN + d_vu) + 4 * d_vu)
-        ops = b * window_pairs(h, w) * (2 * d_qk + 2 * d_vu)
-        bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_FLOPS * 1e3
-        wts, out = wa.scratch(q, WIN // 2), torch.empty_like(got)
-
-        def half(stages):  # one of the two launches alone
-            return lambda: wa.launch_stages(q, k, v, rel, wts, out, WIN // 2, stages)
-
+        pairs = b * window_pairs(h, w)
+        if dtype == b16:
+            ops = pairs * (2 * d_qk + 4 * d_vu)
+            ops_ms = ops / H100_BF16_FLOPS * 1e3
+        else:
+            ops = pairs * (2 * d_qk + 2 * d_vu)
+            ops_ms = ops / H100_F32_FLOPS * 1e3
+        bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
         row = dict(case=name, shape=[b, h, w, d_qk, d_vu], dtype=str(dtype), max_abs_err=err,
                    library_max_abs_err=(lib.float() - want).abs().max().item(),
+                   launches_per_call=1 if dtype == b16 else 2,
                    kernel_ms=cuda_ms(lambda: wa.window_attn_cuda(q, k, v, rel)),
-                   weights_ms=cuda_ms(half(1)), weighted_sum_ms=cuda_ms(half(2)),
                    plain_ms=cuda_ms(lambda: wa.window_attn_reference(q, k, v, rel)),
                    library_ms=cuda_ms(sdpa), bytes=n_bytes, ops=ops,
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        if dtype == f32:  # each of the two launches alone
+            wts, out = wa.scratch(q, WIN // 2), torch.empty_like(got)
+            for key, stages in (("weights_ms", 1), ("weighted_sum_ms", 2)):
+                row[key] = cuda_ms(
+                    lambda: wa.launch_stages(q, k, v, rel, wts, out, WIN // 2, stages))
         rows.append(row)
         if name.startswith("path"):
             main[dtype] = row
         if err > KERNEL_TOL:
             emit(dict(phase="kernels", name="window_attn", cases=rows))
             fail(f"window_attn {name}: max abs err {err} > {KERNEL_TOL}")
+    tiny = torch.zeros(1, device="cuda")
     emit(dict(phase="kernels", name="window_attn", card=card, tol=KERNEL_TOL, cases=rows,
+              launch_floor_ms=cuda_ms(tiny.zero_),
               note="library_ms: one scaled_dot_product_attention over all keys under the "
                    "dense window mask (mask built outside the timing), on the same inputs "
-                   "(bf16 cases: bf16 in and out); weights_ms and weighted_sum_ms: each of "
-                   "the two launches alone (kernel_ms runs them as one call, the second "
-                   "starting while the first runs); bytes: inputs in their type, the output "
-                   "in float32; ops: the same float32 math on both"))
-    return [dict(name=n, route="cuda", source="havc_tpu_torch/csrc/window_attn.cu",
+                   "(bf16 cases: bf16 in and out); float32 cases: weights_ms and "
+                   "weighted_sum_ms are each of the two launches alone (kernel_ms runs them as "
+                   "one call, the second starting while the first runs); bf16 cases: one "
+                   "launch; bytes: inputs in their type, the output in float32; ops: 2 (d_qk + "
+                   "d_vu) a pair at 67 TFLOP/s (float32), 2 (d_qk + 2 d_vu) at 989 TFLOP/s "
+                   "(bf16: the weights in two bf16 terms); launch_floor_ms: a one-element "
+                   "fill timed the same way, what back-to-back launches cost at least"))
+    return [dict(name=n, route="cuda", source=f"havc_tpu_torch/csrc/{src}.cu",
                  replaces="havc_tpu/ops/pallas_attn.py:107", launches=None,
                  max_abs_err=worst[dtype], ms=main[dtype]["kernel_ms"],
                  plain_ms=main[dtype]["plain_ms"], bound_ms=main[dtype]["bound_ms"],
                  bound_by=main[dtype]["bound_by"], library_ms=main[dtype]["library_ms"])
-            for n, dtype in (("window_attn", f32), ("window_attn_bf16", b16))]
+            for n, src, dtype in (("window_attn", "window_attn", f32),
+                                  ("window_attn_bf16", "window_attn_tc", b16))]
 
 
 # --- phase 3: the main path at full width -------------------------------------------
@@ -726,6 +756,19 @@ def phase_profile(path: str, run, wall_s, card: str, kernel: str, groups=None) -
     return row
 
 
+def check_one_launch_a_call(row: dict, launches: dict) -> None:
+    """A profiled ColorMNet path launched window attention's bf16 kernel
+    once per call and no other window-attention kernel (nothing to check
+    where the profiler recorded no CUDA kernel)."""
+    if "kernel_launches" not in row:
+        return
+    if not all("window_attn_tc_kernel" in n for n in row["kernel_launches"]) or \
+            sum(row["kernel_launches"].values()) != launches["window_attn_bf16"]:
+        fail(f"{row['path']}: window-attention kernels {row['kernel_launches']} in the profile, "
+             f"expected window_attn_tc_kernel once per call "
+             f"({launches['window_attn_bf16']} calls)")
+
+
 # --- phases 10-13: the classic surface ------------------------------------------------
 
 BW_SHAPE = (8, 1080, 1920)
@@ -773,9 +816,15 @@ def zero_launches(pc, wa) -> None:
     wa.window_attn_cuda.launches_bf16 = 0
 
 
+def window_attn_launches(launches: dict) -> int:
+    """Kernel launches of window attention from ``read_launches``' calls:
+    one per call on bf16 inputs, two (weights, weighted sum) on float32."""
+    return launches["window_attn_bf16"] + 2 * launches["window_attn"]
+
+
 def read_launches(pc, wa) -> dict:
     """Calls of each kernel since ``zero_launches``; window attention by
-    instantiation (``window_attn``: float32 inputs, ``window_attn_bf16``)."""
+    input type (``window_attn``: float32, ``window_attn_bf16``)."""
     bf16 = wa.window_attn_cuda.launches_bf16
     return dict(post_chain=pc.post_chain_cuda.launches,
                 window_attn=wa.window_attn_cuda.launches - bf16, window_attn_bf16=bf16)
@@ -1134,7 +1183,7 @@ def drive_exemplar_path(ht, pc, wa, card: str, name: str, run, frames_n: int,
                fps=frames_n / wall_s, stage_timed_wall_s=stage_timed_s, stages_s=stages,
                max_memory_allocated=peak, launches=launches,
                window_attn_calls=launches["window_attn_bf16"],
-               window_attn_launches=2 * launches["window_attn_bf16"],
+               window_attn_launches=window_attn_launches(launches),
                post_chain_launches=launches["post_chain"], propagate_calls=loop.calls,
                propagate=loop.by_name,
                loop_host_syncs=loop.syncs, loop_sync_sites=loop.sites[:6],
@@ -1385,7 +1434,7 @@ def drive_engine_path(ht, pc, wa, card: str, name: str, run, frames_n: int, want
                engine_stages_s={k: stages[k] for k in ENGINE_STAGES if k in stages},
                max_memory_allocated=peak, params=params, launches=launches,
                window_attn_calls=launches["window_attn_bf16"],
-               window_attn_launches=2 * launches["window_attn_bf16"],
+               window_attn_launches=window_attn_launches(launches),
                post_chain_launches=launches["post_chain"], propagate=loop.by_name,
                propagate_host_syncs=loop.syncs, sync_sites=loop.sites[:6], out_min=lo,
                out_max=hi, mean_abs_chroma=(f - f.mean(-1, keepdim=True)).abs().mean().item())
@@ -2521,7 +2570,7 @@ def phase_restore_streaming(pc, wa, card: str, tmp: str):
               host_syncs=sync_n, sync_sites=sync_sites, chunks=-(-RESTORE_T // 16),
               max_memory_allocated=peak, window_attn_calls=launches,
               window_attn_f32_calls=by_kernel["window_attn"],
-              window_attn_launches=2 * launches, chunk48_s=wall48_s,
+              window_attn_launches=window_attn_launches(by_kernel), chunk48_s=wall48_s,
               chunk16_vs_48_max_code_diff=int(diff.max()),
               chunk16_vs_48_unequal_share=float(np.mean(diff > 0)),
               stage_timed_wall_s=profiled_s, stages_s=stages,
@@ -2700,7 +2749,7 @@ def phase_exemplar_f32_vs_bf16(ht, pc, wa, card: str, tmp: str) -> dict:
     phase's 48-frame pair, chunk 16) run with the default engines and with
     float32 ones (``Precision``), timed in turns bf16, f32, f32, bf16 after
     a warm-up call of each: wall times, fps, the kernels' launches of each
-    precision (each instantiation of window attention only at its own),
+    precision (each window attention kernel only at its own),
     the host syncs inside the three scans at bf16 (none allowed), and the
     bf16 output's distance from the float32 one."""
     from havc_tpu_torch import exemplar, streaming
@@ -2861,7 +2910,7 @@ def phase_scene_parallel_path(ht, pc, wa, card: str) -> dict:
         rows[name] = dict(first_call_s=first_s, wall_s=wall_s, fps=SCENE_T / wall_s,
                           max_memory_allocated=torch.cuda.max_memory_allocated(),
                           window_attn_calls=launches["window_attn_bf16"],
-                          window_attn_launches=2 * launches["window_attn_bf16"],
+                          window_attn_launches=window_attn_launches(launches),
                           window_attn_f32_calls=launches["window_attn"],
                           scan_host_syncs=loop.by_name, scan_sync_sites=loop.sites[:6],
                           ab_shape=list(cap.ab[0].shape))
@@ -3352,9 +3401,14 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     sass = {name: {short_name(f): n for f, n in kernels.sass_counts(kernels._target(name)).items()}
             for name in kernels.SOURCES}
+    tc = kernels.load("window_attn_tc")
     emit(dict(phase="build", seconds=build_s,
               ptxas={k: ptxas_report(v) for k, v in kernels.build_logs.items()},
-              sass_instructions=sass))
+              sass_instructions=sass,
+              dynamic_smem={"window_attn_tc_kernel": {
+                  case: tc.window_attn_tc_smem(b, h, w, d_qk, d_vu, WIN // 2)
+                  for case, (b, h, w, d_qk, d_vu) in {
+                      **WINDOW_ATTN_SHAPES, "scene_batch": (SCENE_S, 14, 28, 64, 1024)}.items()}}))
     # the post chain's function holds the pixel program five times: four
     # interleaved in the vector loop, one for the scalar head and tail
     sass_per_pixel = sass["post_chain"]["post_chain_kernel"] / 5
@@ -3380,7 +3434,9 @@ def main() -> None:
         phase_profile(name, run_classic, cl_wall_s, smi, "post_chain", FILTER_KERNELS)
         del run_classic
     by_path["exemplar_path"], run_exemplar, ex_wall_s = phase_exemplar_path(ht, pc, wa, smi)
-    phase_profile("exemplar_path", run_exemplar, ex_wall_s, smi, "window_attn")
+    check_one_launch_a_call(
+        phase_profile("exemplar_path", run_exemplar, ex_wall_s, smi, "window_attn"),
+        by_path["exemplar_path"])
     del run_exemplar
     phase_exemplar_memory(smi)
     by_path["recolor_path"], run_recolor, rc_wall_s = phase_recolor_path(ht, pc, wa, smi)
@@ -3429,8 +3485,8 @@ def main() -> None:
         by_path.update(phase_exemplar_f32_vs_bf16(ht, pc, wa, smi, tmp))
 
     # `launches`: each kernel's slice's own path, in calls: the post chain
-    # on HAVC_main with its defaults; window attention's bf16 instantiation
-    # on the exemplar path at the card's default precision, its float32 one
+    # on HAVC_main with its defaults; window attention's bf16 kernel on
+    # the exemplar path at the card's default precision, its float32 ones
     # on the same path with float32 engines
     summary[0]["launches"] = by_path["main_path"]["post_chain"]
     summary[1]["launches"] = by_path["exemplar_f32_vs_bf16/exemplar_path_f32"]["window_attn"]

@@ -12,7 +12,8 @@ BWTune and LUT, ``streaming.HAVC_restore_video_streaming`` with every
 engine) run on an
 NVIDIA GPU: plain tensor code in PyTorch, and the TPU kernels rewritten in CUDA
 C++ for Hopper (``csrc/post_chain.cu``, the fused post chain;
-``csrc/window_attn.cu``, ColorMNet's local window attention), built with
+``csrc/window_attn.cu`` and, on bf16 inputs, ``csrc/window_attn_tc.cu``,
+ColorMNet's local window attention), built with
 ``nvcc`` at first use.  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; without CUDA the default raises.
 

@@ -2,11 +2,8 @@
 // softmax over the (2*max_dis+1)^2 offsets of its window of
 // (q * scale) . k + rel, out-of-frame offsets at -1e8, then the weighted
 // sum of v.  q, k (B, H, W, d_qk), v and out (B, H, W, d_vu), rel
-// (B, H, W, win*win), channel-last and contiguous.  The inputs are all
-// float32 or all bfloat16 (one instantiation of both kernels each); the
-// kernels convert them to float32 in registers, keep the logits, the
-// softmax and the sums in float32, and write float32, as the TPU kernel
-// does (its wrapper casts bf16 inputs to f32, pallas_attn.py:124-128).
+// (B, H, W, win*win), channel-last and contiguous, all float32.  bf16
+// inputs go to csrc/window_attn_tc.cu, one launch on the tensor cores.
 //
 // Replaces the TPU kernel havc_tpu/ops/pallas_attn.py::_kernel (public
 // local_window_attention).  The plain PyTorch version is
@@ -17,8 +14,7 @@
 // (pixel, in-frame offset) pair; out-of-frame offsets have weight 0 and
 // are skipped.  At ColorMNet's path shape (1, 14, 28, 64 / 1024) 56,056
 // of the 392 x 225 pairs lie in the frame: 0.122 GFLOP, 1.82 us at the
-// card's f32 rate, against 3.76 MB read, 1.12 us (bf16 inputs: 2.0 MB,
-// 0.60 us; the math is the same f32).  At this size what the
+// card's f32 rate, against 3.76 MB read, 1.12 us.  At this size what the
 // time goes to is latency: 392 pixels give little parallelism, each step
 // waits on a load from L2, and v (1.6 MB) is re-read from the 50 MB L2
 // by every tile whose windows cover it.
@@ -35,10 +31,7 @@
 //    padded block: per window position, TP floats, 0 where the position
 //    is outside a pixel's window.
 // 2. window_attn_sum_kernel, one CTA per tile and per 128 output channels
-//    (4 per thread: one 16-byte copy of float32, one 8-byte copy of bf16,
-//    which halves v's bytes and keeps the float32 grid; 8 bf16 channels in
-//    one 16-byte copy would halve the CTAs, 196 at the path shape), two
-//    warps that take alternate rows:
+//    (4 per thread, one 16-byte copy), two warps that take alternate rows:
 //    each warp streams its v rows through a 3-stage cp.async ring (each
 //    thread copies and reads only its own channels, so the ring needs no
 //    barrier) and adds every v vector into the TP accumulators it serves,
@@ -54,17 +47,14 @@
 // shuffles, and read v with dependent 4-byte loads.
 //
 // Offset order o = (dy + max_dis) * win + (dx + max_dis), dy-major: the
-// channel order of rel.  q is converted to f32 and then scaled, as the
-// TPU kernel does.  Numerics: built without fast math; multiply-adds
-// may contract (the tolerance against the plain version, 1e-5, covers
-// another rounding order).  expf and the division are the accurate ones.
-// Out-of-frame offsets get exactly 0 weight (expf(-1e8 - m) is 0).
-#include <cuda_bf16.h>
+// channel order of rel.  q is scaled, as the TPU kernel does.  Numerics:
+// built without fast math; multiply-adds may contract (the tolerance
+// against the plain version, 1e-5, covers another rounding order).  expf
+// and the division are the accurate ones.  Out-of-frame offsets get
+// exactly 0 weight (expf(-1e8 - m) is 0).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #define WA_TH 2                // output tile rows
 #define WA_TW 4                // output tile columns
@@ -95,32 +85,15 @@ __device__ __forceinline__ int div_small(int i, float inv) {
   return (int)(((float)i + 0.5f) * inv);
 }
 
-// ---- element types -------------------------------------------------------------
-
-// one input element to float32 (bf16: its 16 bits are the top of a float)
-__device__ __forceinline__ float ld_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
-  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
-}
-
-// the low and high bf16 of a 32-bit word, as float32
-__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
-
-// `BYTES` bytes from global to shared memory, both addresses aligned to
-// them: cp.async for 4, 8 and 16; a 2-byte element (bf16 on the scalar
-// path) is copied by the thread itself, which is the only one to read it
+// `BYTES` (16 or 4) bytes from global to shared memory by cp.async, both
+// addresses aligned to them
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  else if constexpr (BYTES == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
-  else if constexpr (BYTES == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
   else
-    *reinterpret_cast<unsigned short*>(dst) = *reinterpret_cast<const unsigned short*>(src);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -158,31 +131,27 @@ __device__ __forceinline__ void gather(float* dst, int n, F load) {
   }
 }
 
-// k[d..d+3] as float32.  V 4: one 16-byte (float32) or 8-byte (bf16) load,
-// k aligned to it and d_qk % 4 == 0; V 1: element by element, any
-template <typename T, int V>
-__device__ __forceinline__ float4 load_k4(const T* kp, int d, int d_qk) {
-  if constexpr (V == 4 && std::is_same_v<T, float>) {
+// k[d..d+3].  V 4: one 16-byte load, k aligned to it and d_qk % 4 == 0;
+// V 1: element by element, any
+template <int V>
+__device__ __forceinline__ float4 load_k4(const float* kp, int d, int d_qk) {
+  if constexpr (V == 4) {
     return __ldg(reinterpret_cast<const float4*>(kp + d));
-  } else if constexpr (V == 4) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(kp + d));
-    return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
   } else {
-    return make_float4(d < d_qk ? ld_f32(kp + d) : 0.0f, d + 1 < d_qk ? ld_f32(kp + d + 1) : 0.0f,
-                       d + 2 < d_qk ? ld_f32(kp + d + 2) : 0.0f,
-                       d + 3 < d_qk ? ld_f32(kp + d + 3) : 0.0f);
+    return make_float4(d < d_qk ? __ldg(kp + d) : 0.0f, d + 1 < d_qk ? __ldg(kp + d + 1) : 0.0f,
+                       d + 2 < d_qk ? __ldg(kp + d + 2) : 0.0f,
+                       d + 3 < d_qk ? __ldg(kp + d + 3) : 0.0f);
   }
 }
 
 // One CTA per tile, at least one warp per pixel (warp p takes pixel p's
 // softmax) and one thread per window position of the tile.  Shared
-// memory (float32 whatever T): q_s (TP x d4, the scaled queries, d_qk
-// rounded up to 4 with zeros), r_s (TP x n_off, rel), l_s (TP x n_off,
-// logits then weights).
-template <typename T, int V>
+// memory: q_s (TP x d4, the scaled queries, d_qk rounded up to 4 with
+// zeros), r_s (TP x n_off, rel), l_s (TP x n_off, logits then weights).
+template <int V>
 __global__ void __launch_bounds__(WEIGHTS_MAX_THREADS)
-window_attn_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ rel, float* __restrict__ wts, int H, int W,
+window_attn_weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ rel, float* __restrict__ wts, int H, int W,
                            int d_qk, int max_dis, float scale) {
   // let the weighted sum launch now: it fetches v while this grid runs,
   // and waits for this grid to finish before it reads the weights
@@ -205,7 +174,7 @@ window_attn_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv_pw = 1.0f / pw;
   float4 kr[K_REGS];
   int r = 0, c = 0;
-  const T* kp = k;
+  const float* kp = k;
   auto fetch = [&](int pos) {
     r = div_small(pos, inv_pw);
     c = pos - r * pw;
@@ -214,22 +183,22 @@ window_attn_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
     kp = k + (base + (long long)yy * W + xx) * d_qk;
 #pragma unroll
     for (int j = 0; j < K_REGS; ++j)
-      if (4 * j < d4) kr[j] = load_k4<T, V>(kp, 4 * j, d_qk);
+      if (4 * j < d4) kr[j] = load_k4<V>(kp, 4 * j, d_qk);
     return true;
   };
   bool have = fetch(tid);
-  // the tile's rel, and its queries converted to f32, then scaled
+  // the tile's rel, and its queries scaled
   const float inv_off = 1.0f / n_off, inv_d4 = 1.0f / d4;
   gather(r_s, WA_TP * n_off, [&](int i) {
     const int pp = div_small(i, inv_off), o = i - pp * n_off;
     const int yy = y0 + pp / WA_TW, xx = x0 + pp % WA_TW;
-    return yy < H && xx < W ? ld_f32(rel + (base + (long long)yy * W + xx) * n_off + o) : 0.0f;
+    return yy < H && xx < W ? __ldg(rel + (base + (long long)yy * W + xx) * n_off + o) : 0.0f;
   });
   gather(q_s, WA_TP * d4, [&](int i) {
     const int pp = div_small(i, inv_d4), d = i - pp * d4;
     const int yy = y0 + pp / WA_TW, xx = x0 + pp % WA_TW;
-    const T* qp = q + (base + (long long)yy * W + xx) * d_qk + d;
-    return yy < H && xx < W && d < d_qk ? ld_f32(qp) * scale : 0.0f;
+    const float* qp = q + (base + (long long)yy * W + xx) * d_qk + d;
+    return yy < H && xx < W && d < d_qk ? __ldg(qp) * scale : 0.0f;
   });
   __syncthreads();
 
@@ -255,7 +224,7 @@ window_attn_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       for (int d = 4 * K_REGS; d < d4; d += 4) {
         const float4 a = *reinterpret_cast<const float4*>(qp + d);
-        const float4 kv = load_k4<T, V>(kp, d, d_qk);
+        const float4 kv = load_k4<V>(kp, d, d_qk);
         s0 += a.x * kv.x;
         s1 += a.y * kv.y;
         s2 += a.z * kv.z;
@@ -344,9 +313,9 @@ window_attn_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Bytes of one warp's part of the sum kernel's shared memory: its ring of
 // STAGES v rows (pw positions x 32 x V elements each), at least the
 // TP x 32 x V float32 sums it hands to warp 0 at the end, rounded to 16.
-template <typename T, int V>
+template <int V>
 __host__ __device__ __forceinline__ int sum_warp_bytes(int pw) {
-  const int ring = STAGES * pw * 32 * V * (int)sizeof(T);
+  const int ring = STAGES * pw * 32 * V * (int)sizeof(float);
   const int sums = WA_TP * 32 * V * (int)sizeof(float);
   return ((ring > sums ? ring : sums) + 15) & ~15;
 }
@@ -356,10 +325,10 @@ __host__ __device__ __forceinline__ int sum_warp_bytes(int pw) {
 // window's in-frame rows in turn (warp w the rows ya + w, ya + w +
 // SUM_WARPS, ...) and share the output channels; after its rows, a warp
 // other than 0 leaves its float32 sums in its part for warp 0.
-template <typename T, int V>  // V output channels per thread: 4 (v aligned to 4
-                              // elements, d_vu % 4 == 0) or 1
+template <int V>  // V output channels per thread: 4 (v aligned to 4 elements,
+                  // d_vu % 4 == 0) or 1
 __global__ void __launch_bounds__(32 * SUM_WARPS)
-window_attn_sum_kernel(const T* __restrict__ v, const float* __restrict__ wts,
+window_attn_sum_kernel(const float* __restrict__ v, const float* __restrict__ wts,
                        float* __restrict__ out, int H, int W, int d_vu, int max_dis,
                        int n_chunks) {
   extern __shared__ float4 smem4[];
@@ -377,16 +346,16 @@ window_attn_sum_kernel(const T* __restrict__ v, const float* __restrict__ wts,
   const int rows = yb - ya >= warp ? (yb - ya - warp) / SUM_WARPS + 1 : 0;
   const long long hw = (long long)H * W;
   const int slot = pw * 32 * V;  // elements of one ring stage
-  char* part = reinterpret_cast<char*>(smem4 + n4) + warp * sum_warp_bytes<T, V>(pw);
-  T* ring = reinterpret_cast<T*>(part) + lane * V;
-  const T* vt = v + (b * hw + (long long)(ya + warp) * W + xa) * d_vu + c;
+  char* part = reinterpret_cast<char*>(smem4 + n4) + warp * sum_warp_bytes<V>(pw);
+  float* ring = reinterpret_cast<float*>(part) + lane * V;
+  const float* vt = v + (b * hw + (long long)(ya + warp) * W + xa) * d_vu + c;
 
   auto issue = [&](int j) {  // the warp's j-th row into its ring stage
     if (!active || j >= rows) return;
-    T* dst = ring + (j % STAGES) * slot;
-    const T* src = vt + (long long)j * SUM_WARPS * W * d_vu;
+    float* dst = ring + (j % STAGES) * slot;
+    const float* src = vt + (long long)j * SUM_WARPS * W * d_vu;
     for (int i = 0; i < cols; ++i)
-      cp_async<V * (int)sizeof(T)>(dst + i * 32 * V, src + (long long)i * d_vu);
+      cp_async<V * (int)sizeof(float)>(dst + i * 32 * V, src + (long long)i * d_vu);
   };
   // v does not depend on the weights: fetch the first rows before waiting
 #pragma unroll
@@ -413,23 +382,17 @@ window_attn_sum_kernel(const T* __restrict__ v, const float* __restrict__ wts,
     issue(j + STAGES - 1);
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
-    const T* vs = ring + (j % STAGES) * slot;
+    const float* vs = ring + (j % STAGES) * slot;
     const float4* wq =
         smem4 + ((ya + warp + j * SUM_WARPS - ybase) * pw + xa - xbase) * (WA_TP / 4);
 #pragma unroll 2
     for (int i = 0; i < cols; ++i) {
       float val[V];
-      if constexpr (V == 1 && std::is_same_v<T, float>) {
+      if constexpr (V == 1) {
         val[0] = vs[i * 32];
-      } else if constexpr (V == 1) {
-        val[0] = bf16_lo(*reinterpret_cast<const unsigned short*>(vs + i * 32));
-      } else if constexpr (std::is_same_v<T, float>) {
+      } else {
         const float4 f = *reinterpret_cast<const float4*>(vs + i * 32 * V);
         val[0] = f.x; val[1] = f.y; val[2] = f.z; val[3] = f.w;
-      } else {  // 4 bf16 channels in one 8-byte word
-        const uint2 u = *reinterpret_cast<const uint2*>(vs + i * 32 * V);
-        val[0] = bf16_lo(u.x); val[1] = bf16_hi(u.x); val[2] = bf16_lo(u.y);
-        val[3] = bf16_hi(u.y);
       }
 #pragma unroll
       for (int q4 = 0; q4 < WA_TP / 4; ++q4) {
@@ -458,7 +421,7 @@ window_attn_sum_kernel(const T* __restrict__ v, const float* __restrict__ wts,
   if (warp > 0 || !active) return;
   for (int w = 1; w < SUM_WARPS; ++w) {
     const float* other =
-        reinterpret_cast<const float*>(part + w * sum_warp_bytes<T, V>(pw)) + lane * V;
+        reinterpret_cast<const float*>(part + w * sum_warp_bytes<V>(pw)) + lane * V;
 #pragma unroll
     for (int p = 0; p < WA_TP; ++p)
 #pragma unroll
@@ -499,26 +462,26 @@ extern "C" long long window_attn_scratch_floats(int B, int H, int W, int max_dis
   return tiles * (WA_TH + 2 * max_dis) * (WA_TW + 2 * max_dis) * WA_TP;
 }
 
-template <typename T, int V>
+template <int V>
 static int launch_weights(const dim3& grid, int threads, size_t smem, cudaStream_t st,
-                          const void* q, const void* k, const void* rel, void* wts, int H,
+                          const float* q, const float* k, const float* rel, float* wts, int H,
                           int W, int d_qk, int max_dis, float scale) {
-  const int rc = smem_for((const void*)window_attn_weights_kernel<T, V>, smem);
+  const int rc = smem_for((const void*)window_attn_weights_kernel<V>, smem);
   if (rc != 0) return rc;
-  window_attn_weights_kernel<T, V><<<grid, threads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)rel, (float*)wts, H, W, d_qk, max_dis, scale);
+  window_attn_weights_kernel<V><<<grid, threads, smem, st>>>(q, k, rel, wts, H, W, d_qk,
+                                                             max_dis, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V>
-static int launch_sum(int tiles_x, int tiles_y, int B, cudaStream_t st, const void* v,
-                      const void* wts, void* out, int H, int W, int d_vu, int max_dis) {
+template <int V>
+static int launch_sum(int tiles_x, int tiles_y, int B, cudaStream_t st, const float* v,
+                      const float* wts, float* out, int H, int W, int d_vu, int max_dis) {
   const int ph = WA_TH + 2 * max_dis, pw = WA_TW + 2 * max_dis;
   const int n_chunks = (d_vu / V + 31) / 32;
   if ((long long)B * n_chunks > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)ph * pw * WA_TP +
-                      (size_t)SUM_WARPS * sum_warp_bytes<T, V>(pw);
-  int rc = smem_for((const void*)window_attn_sum_kernel<T, V>, smem);
+                      (size_t)SUM_WARPS * sum_warp_bytes<V>(pw);
+  int rc = smem_for((const void*)window_attn_sum_kernel<V>, smem);
   if (rc != 0) return rc;
   // programmatic dependent launch: may start while the weights kernel
   // runs (it waits for it with griddepcontrol.wait)
@@ -532,15 +495,27 @@ static int launch_sum(int tiles_x, int tiles_y, int B, cudaStream_t st, const vo
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, window_attn_sum_kernel<T, V>, (const T*)v,
-                                 (const float*)wts, (float*)out, H, W, d_vu, max_dis,
-                                 n_chunks);
+  return (int)cudaLaunchKernelEx(&cfg, window_attn_sum_kernel<V>, v, wts, out, H, W, d_vu,
+                                 max_dis, n_chunks);
 }
 
-template <typename T>
-static int launch_typed(const void* q, const void* k, const void* v, const void* rel,
-                        void* wts, void* out, int B, int H, int W, int d_qk, int d_vu,
-                        int max_dis, float scale, int stages, cudaStream_t st) {
+// C entry point for ctypes: launches on `stream` the weights kernel
+// (stages & 1), which writes `wts`, and the weighted sum (stages & 2),
+// which reads it; the wrapper passes 3, the two halves are apart only for
+// timing.  q, k, v, rel and `out` are float32.  Returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a shape the grid or the
+// card's shared memory does not take.  The caller owns every buffer;
+// `wts` holds window_attn_scratch_floats(B, H, W, max_dis) floats, 16-byte
+// aligned.
+extern "C" int window_attn_launch(const float* q, const float* k, const float* v,
+                                  const float* rel, float* wts, float* out, int B, int H, int W,
+                                  int d_qk, int d_vu, int max_dis, float scale, int stages,
+                                  void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || d_vu <= 0) return 0;
+  if (max_dis < 0 || d_qk <= 0 || (H + WA_TH - 1) / WA_TH > 65535 || B > 65535 ||
+      !aligned(wts, 16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   const int tiles_y = (H + WA_TH - 1) / WA_TH, tiles_x = (W + WA_TW - 1) / WA_TW;
   const int win = 2 * max_dis + 1;
   const int ph = WA_TH + 2 * max_dis, pw = WA_TW + 2 * max_dis;
@@ -551,41 +526,17 @@ static int launch_typed(const void* q, const void* k, const void* v, const void*
     if (threads < 32 * WA_TP) threads = 32 * WA_TP;
     if (threads > WEIGHTS_MAX_THREADS) threads = WEIGHTS_MAX_THREADS;
     const dim3 grid(tiles_x, tiles_y, B);
-    const int rc = d_qk % 4 == 0 && aligned(k, 4 * sizeof(T))
-        ? launch_weights<T, 4>(grid, threads, smem, st, q, k, rel, wts, H, W, d_qk, max_dis,
-                               scale)
-        : launch_weights<T, 1>(grid, threads, smem, st, q, k, rel, wts, H, W, d_qk, max_dis,
-                               scale);
+    const int rc = d_qk % 4 == 0 && aligned(k, 4 * sizeof(float))
+        ? launch_weights<4>(grid, threads, smem, st, q, k, rel, wts, H, W, d_qk, max_dis, scale)
+        : launch_weights<1>(grid, threads, smem, st, q, k, rel, wts, H, W, d_qk, max_dis, scale);
     if (rc != 0) return rc;
   }
   if (stages & 2) {
-    const int rc = d_vu % VS == 0 && aligned(v, VS * sizeof(T)) && aligned(out, 16)
-        ? launch_sum<T, VS>(tiles_x, tiles_y, B, st, v, wts, out, H, W, d_vu, max_dis)
-        : launch_sum<T, 1>(tiles_x, tiles_y, B, st, v, wts, out, H, W, d_vu, max_dis);
+    const int rc = d_vu % VS == 0 && aligned(v, VS * sizeof(float)) && aligned(out, 16)
+        ? launch_sum<VS>(tiles_x, tiles_y, B, st, v, wts, out, H, W, d_vu, max_dis)
+        : launch_sum<1>(tiles_x, tiles_y, B, st, v, wts, out, H, W, d_vu, max_dis);
     if (rc != 0) return rc;
   }
   return (int)cudaGetLastError();
 }
 
-// C entry point for ctypes: launches on `stream` the weights kernel
-// (stages & 1), which writes `wts`, and the weighted sum (stages & 2),
-// which reads it; the wrapper passes 3, the two halves are apart only for
-// timing.  q, k, v and rel are float32 (bf16 0) or bfloat16 (bf16 1);
-// `out` is float32.  Returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a shape the grid or the card's shared memory
-// does not take.  The caller owns every buffer; `wts` holds
-// window_attn_scratch_floats(B, H, W, max_dis) floats, 16-byte aligned.
-extern "C" int window_attn_launch(const void* q, const void* k, const void* v, const void* rel,
-                                  void* wts, void* out, int B, int H, int W, int d_qk,
-                                  int d_vu, int max_dis, float scale, int stages, int bf16,
-                                  void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || d_vu <= 0) return 0;
-  if (max_dis < 0 || d_qk <= 0 || (H + WA_TH - 1) / WA_TH > 65535 || B > 65535 ||
-      !aligned(wts, 16))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? launch_typed<__nv_bfloat16>(q, k, v, rel, wts, out, B, H, W, d_qk, d_vu,
-                                            max_dis, scale, stages, st)
-              : launch_typed<float>(q, k, v, rel, wts, out, B, H, W, d_qk, d_vu, max_dis,
-                                    scale, stages, st);
-}

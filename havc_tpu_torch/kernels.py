@@ -53,8 +53,16 @@ SOURCES = {
     "window_attn": Kernel(
         flags=(),
         entries={
-            "window_attn_launch": ([_P] * 6 + [_I] * 6 + [_F, _I, _I, _P], _I),
+            "window_attn_launch": ([_P] * 6 + [_I] * 6 + [_F, _I, _P], _I),
             "window_attn_scratch_floats": ([_I] * 4, ctypes.c_longlong),
+        },
+    ),
+    # window attention on bf16 inputs, on the tensor cores; the same
+    "window_attn_tc": Kernel(
+        flags=(),
+        entries={
+            "window_attn_tc_launch": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
+            "window_attn_tc_smem": ([_I] * 6, ctypes.c_longlong),
         },
     ),
 }

@@ -6,18 +6,20 @@ out-of-frame offsets set to -1e8), then the weighted sum of ``v``.
 Channel-last: q, k ``(B, H, W, d_qk)``, v ``(B, H, W, d_vu)``,
 rel ``(B, H, W, win*win)`` in offset order ``(dy + max_dis) * win + (dx +
 max_dis)``; the result is ``(B, H, W, d_vu)`` float32.  The inputs are
-all float32 or all bfloat16: bf16 values are computed with in float32 (q
-converted, then scaled), as the JAX package's kernel computes them, and
-reach the kernel's bf16 instantiation on the card without a cast.
+all float32 or all bfloat16: bf16 values are computed with in float32, as
+the JAX package's kernel computes them, and reach their own kernel on the
+card without a cast.
 
 Three functions, as for the post chain:
 
 * ``window_attn_reference`` — the plain PyTorch version, a line-for-line
   copy of ``havc_tpu.ops.pallas_attn.local_window_attention_reference``
   (unfold + einsum);
-* ``window_attn_cuda`` — the CUDA C++ kernels (``csrc/window_attn.cu``:
-  weights, then the weighted sum) on CUDA tensors;
-  ``window_attn_cuda.launches`` counts its calls;
+* ``window_attn_cuda`` — the CUDA C++ kernels on CUDA tensors: float32
+  inputs in two launches (``csrc/window_attn.cu``: weights, then the
+  weighted sum), bf16 inputs in one launch on the tensor cores
+  (``csrc/window_attn_tc.cu``); ``window_attn_cuda.launches`` counts its
+  calls, ``launches_bf16`` those on bf16 inputs;
 * ``window_attn`` — the dispatcher: the plain version for CPU tensors, the
   kernel for CUDA tensors, no fallback.
 """
@@ -80,10 +82,10 @@ def _check(q, k, v, rel, max_dis: int):
 
 
 def launch_stages(q, k, v, rel, wts, out, max_dis: int, stages: int) -> None:
-    """Launch the weights kernel (``stages & 1``, writes the scratch
-    ``wts``) and the weighted sum (``stages & 2``, reads ``wts``, writes
-    ``out``).  ``window_attn_cuda`` launches both; one half alone is for
-    timing it."""
+    """Launch the float32 kernels: the weights kernel (``stages & 1``,
+    writes the scratch ``wts``) and the weighted sum (``stages & 2``, reads
+    ``wts``, writes ``out``).  ``window_attn_cuda`` launches both; one half
+    alone is for timing it."""
     b, h, w, d_qk = q.shape
     lib = kernels.load("window_attn")
     with torch.cuda.device(q.device):
@@ -91,16 +93,31 @@ def launch_stages(q, k, v, rel, wts, out, max_dis: int, stages: int) -> None:
         rc = lib.window_attn_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), wts.data_ptr(),
             out.data_ptr(), b, h, w, d_qk, v.shape[-1], max_dis, 1.0 / math.sqrt(d_qk),
-            stages, int(q.dtype == torch.bfloat16), stream,
+            stages, stream,
         )
     if rc != 0:
         raise RuntimeError(f"window_attn_cuda: launch failed with CUDA error {rc} "
                            f"(a window or d_qk too large for shared memory gives 1)")
 
 
+def _launch_tc(q, k, v, rel, out, max_dis: int) -> None:
+    """Launch the bf16 kernel: one launch, no scratch."""
+    b, h, w, d_qk = q.shape
+    lib = kernels.load("window_attn_tc")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.window_attn_tc_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(), b, h, w,
+            d_qk, v.shape[-1], max_dis, 1.0 / math.sqrt(d_qk), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"window_attn_cuda: bf16 launch failed with CUDA error {rc} "
+                           f"(a window or d_qk too large for shared memory gives 1)")
+
+
 def scratch(q, max_dis: int) -> torch.Tensor:
-    """The weights scratch of one call: a padded weight block per tile of
-    output pixels (451,584 B at the path shape)."""
+    """The float32 kernels' weights scratch of one call: a padded weight
+    block per tile of output pixels (451,584 B at the path shape)."""
     b, h, w, _ = q.shape
     n = kernels.load("window_attn").window_attn_scratch_floats(b, h, w, max_dis)
     return torch.empty(n, dtype=torch.float32, device=q.device)
@@ -108,17 +125,20 @@ def scratch(q, max_dis: int) -> torch.Tensor:
 
 def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
     """Launch the CUDA kernels; every input a contiguous CUDA tensor on
-    one device, all float32 or all bfloat16 (each type its own
-    instantiation).  One call, two launches, counted once in ``launches``
-    and, on bf16 inputs, in ``launches_bf16`` too."""
+    one device, all float32 (two launches) or all bfloat16 (one launch).
+    Each call is counted once in ``launches`` and, on bf16 inputs, in
+    ``launches_bf16`` too."""
     _check(q, k, v, rel, max_dis)
     b, h, w, _ = q.shape
     out = torch.empty((b, h, w, v.shape[-1]), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    launch_stages(q, k, v, rel, scratch(q, max_dis), out, max_dis, 3)
+    if q.dtype == torch.bfloat16:
+        _launch_tc(q, k, v, rel, out, max_dis)
+        window_attn_cuda.launches_bf16 += 1
+    else:
+        launch_stages(q, k, v, rel, scratch(q, max_dis), out, max_dis, 3)
     window_attn_cuda.launches += 1
-    window_attn_cuda.launches_bf16 += q.dtype == torch.bfloat16
     return out
 
 

@@ -10,6 +10,7 @@ from havc_tpu_torch import kernels
 @pytest.mark.parametrize("name,own,absent", [
     ("post_chain", ("-fmad=false",), ()),
     ("window_attn", (), ("-fmad=false",)),
+    ("window_attn_tc", (), ("-fmad=false",)),
 ])
 def test_build_command_carries_target_and_own_flags(name, own, absent):
     cmd = kernels.build_command(name, "out.so")

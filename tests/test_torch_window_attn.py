@@ -3,18 +3,23 @@
 ``window_attn_reference`` (unfold + einsum) is held to havc_tpu's
 ``local_window_attention`` (the Pallas kernel in interpret mode) and to
 its ``local_window_attention_reference`` at max abs <= 1e-5: the same
-float32 function, summed in another order.  The CUDA kernel is held to
-the plain version on the card, its bf16-input instantiation on the same
-bf16 values (both compute in float32, so the same 1e-5 holds; the JAX
-side of the bf16 inputs is in tests/test_torch_bf16.py).
+float32 function, summed in another order.  The CUDA kernels are held to
+the plain version on the card: the float32 one, and the bf16 one on the
+same bf16 values (it computes in float32 from them, so the same 1e-5
+holds; the JAX side of the bf16 inputs is in tests/test_torch_bf16.py).
+The bf16 kernel's arithmetic (tensor-core products of the bf16 values,
+the softmax weights in two bf16 terms) is emulated here on the CPU.
 
 The JAX package is imported by the fixture ``pa`` only, so that the card
 test runs where JAX is not installed (``python -m pytest --noconftest
 tests/test_torch_window_attn.py -m cuda`` on the machine with the GPU).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from havc_tpu_torch.ops import window_attn as wa
 
@@ -114,18 +119,20 @@ def test_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
     assert (got - want).abs().max().item() <= TOL
 
 
-# bf16 inputs: the 16-byte paths (8 channels a copy) at the path shape and
-# at the scene batch, the 2-byte scalar paths, and max_dis 0 (the smallest
-# ring, where the handed-over float32 sums outgrow it)
+# bf16 inputs: the path shape and the scene batch (16-byte copies), the
+# element-by-element copies of d_qk 6 and d_vu 10 with a ragged tile,
+# max_dis 0, and render speed "slower" (a 28 x 42 grid: two row tiles)
 BF16_CASES = [((1, 14, 28, 64), 1024, 7, 0), ((6, 14, 28, 64), 1024, 7, 4),
-              ((2, 5, 11, 6), 10, 2, 3), ((1, 3, 5, 8), 16, 0, 5)]
+              ((2, 5, 11, 6), 10, 2, 3), ((1, 3, 5, 8), 16, 0, 5),
+              ((1, 28, 42, 64), 1024, 7, 6)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,d_vu,max_dis,seed", BF16_CASES)
 def test_bf16_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
-    """The bf16 instantiation against the plain version on the same bf16
-    values: both compute in float32, so the float32 tolerance holds."""
+    """The bf16 kernel against the plain version on the same bf16 values:
+    both compute in float32, so the float32 tolerance holds; one launch a
+    call."""
     _need_cuda()
     q, k, v, rel = (torch.from_numpy(x).cuda().bfloat16()
                     for x in _inputs(shape, d_vu, max_dis, seed))
@@ -137,3 +144,63 @@ def test_bf16_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
     assert got.dtype == torch.float32
     want = wa.window_attn_reference(q, k, v, rel, max_dis=max_dis)
     assert (got - want).abs().max().item() <= TOL
+
+
+def tc_emulation(q, k, v, rel, max_dis: int, terms: int = 2) -> torch.Tensor:
+    """The bf16 kernel's arithmetic (``csrc/window_attn_tc.cu``) in torch
+    on the CPU: products of the bf16 values summed in float32 (exact, as
+    on the tensor cores), the scale applied to the logits, e = exp(s -
+    max) in float32, e in ``terms`` bf16 terms (hi = bf16(e), lo = bf16(e
+    - hi)) each multiplied into v, the sum divided by sum(e).  The kernel
+    takes the maximum as it goes and rescales its sums when it grows,
+    which equals this up to rounding."""
+    q, k, v, rel = (t.bfloat16().float() for t in (q, k, v, rel))
+    win = 2 * max_dis + 1
+    b, h, w, d_qk = q.shape
+
+    def unfold(x):  # (N, H, W, C) -> (N, H, W, win*win, C), zero-padded
+        n, c = x.shape[0], x.shape[-1]
+        patches = F.unfold(x.permute(0, 3, 1, 2), (win, win), padding=max_dis)
+        return patches.reshape(n, c, win * win, h, w).permute(0, 3, 4, 2, 1)
+
+    s = torch.einsum("bhwc,bhwnc->bhwn", q, unfold(k)) * (1.0 / math.sqrt(d_qk)) + rel
+    s = torch.where(unfold(torch.ones((1, h, w, 1)))[..., 0] > 0.5, s, -torch.inf)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = e.bfloat16().float()
+    vu = unfold(v)
+    acc = sum(torch.einsum("bhwn,bhwnc->bhwc", p, vu)
+              for p in [hi, (e - hi).bfloat16().float()][:terms])
+    return acc / e.sum(-1, keepdim=True)
+
+
+# the path's spatial shape (d_vu cut to 256: the unfold of 1024 is large),
+# the scalar shape at max_dis 2, and max_dis 0
+TC_CASES = [((1, 14, 28, 64), 256, 7, 0), ((2, 5, 11, 6), 10, 2, 3), ((1, 3, 5, 8), 16, 0, 5)]
+
+
+@pytest.mark.parametrize("shape,d_vu,max_dis,seed", TC_CASES)
+def test_tensor_core_arithmetic_matches_plain_and_jax(pa, shape, d_vu, max_dis, seed):
+    """The weights in two bf16 terms keep the bf16 kernel within 1e-6 of
+    the plain version on the same bf16 values, and within the float32
+    tolerance of the JAX package's reference on them (jitted: one compile
+    instead of one per op)."""
+    import jax
+    import jax.numpy as jnp
+
+    q, k, v, rel = (torch.from_numpy(x).bfloat16() for x in _inputs(shape, d_vu, max_dis, seed))
+    got = tc_emulation(q, k, v, rel, max_dis)
+    assert (got - wa.window_attn_reference(q, k, v, rel, max_dis=max_dis)).abs().max() <= 1e-6
+    jin = tuple(jnp.asarray(t.float().numpy()) for t in (q, k, v, rel))
+    reference = jax.jit(pa.local_window_attention_reference, static_argnames="max_dis")
+    want = np.asarray(reference(*jin, max_dis=max_dis))
+    assert np.abs(got.numpy() - want).max() <= TOL
+
+
+def test_one_bf16_term_misses_the_kernel_tolerance():
+    """Why the weights take two bf16 terms: rounded to one, as attention
+    kernels on bf16 usually do, they move the path shape's output ~20x
+    past the 1e-5 tolerance."""
+    shape, d_vu, max_dis, seed = TC_CASES[0]
+    q, k, v, rel = (torch.from_numpy(x).bfloat16() for x in _inputs(shape, d_vu, max_dis, seed))
+    want = wa.window_attn_reference(q, k, v, rel, max_dis=max_dis)
+    assert (tc_emulation(q, k, v, rel, max_dis, terms=1) - want).abs().max() > 10 * TOL
