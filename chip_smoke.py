@@ -546,9 +546,9 @@ def phase_window_attn(wa, card: str) -> list:
     rows, worst, main = [], {f32: 0.0, b16: 0.0}, {}
     for name, (b, h, w, d_qk, d_vu), seed, dtype in cases:
         q, k, v, rel = window_attn_inputs(b, h, w, d_qk, d_vu, seed, dtype)
-        before = wa.window_attn_cuda.launches_bf16
+        before = read_launches()["window_attn_bf16"]
         got = wa.window_attn_cuda(q, k, v, rel)
-        if wa.window_attn_cuda.launches_bf16 - before != (dtype == b16):
+        if read_launches()["window_attn_bf16"] - before != (dtype == b16):
             fail(f"window_attn {name}: the {dtype} inputs did not reach their kernel")
         want = wa.window_attn_reference(q, k, v, rel)
         mask = window_sdpa_mask(rel).to(dtype)
@@ -655,11 +655,11 @@ def phase_main_path(ht, pc, wa, card: str):
     first_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(pc, wa)
+    zero_launches()
     t0 = time.perf_counter()
     out = run()
     wall_s = time.perf_counter() - t0
-    by_kernel = read_launches(pc, wa)
+    by_kernel = read_launches()
     launches = by_kernel["post_chain"]
     peak = torch.cuda.max_memory_allocated()
 
@@ -811,9 +811,14 @@ def phase_bw_tune_memory(ht, card: str) -> None:
             fail(f"bw_tune_memory: method {r['bw_method']} left the frames unchanged")
 
 
-def zero_launches(pc, wa) -> None:
-    pc.post_chain_cuda.launches = wa.window_attn_cuda.launches = 0
-    wa.window_attn_cuda.launches_bf16 = 0
+LAUNCH_COUNTERS = ("post_chain_launches", "window_attn_launches", "window_attn_launches_bf16")
+
+
+def zero_launches() -> None:
+    """The kernels' launch counters of the port's registry set to 0."""
+    from havc_tpu_torch.utils.profiling import reset_counters
+
+    reset_counters(*LAUNCH_COUNTERS)
 
 
 def window_attn_launches(launches: dict) -> int:
@@ -822,12 +827,15 @@ def window_attn_launches(launches: dict) -> int:
     return launches["window_attn_bf16"] + 2 * launches["window_attn"]
 
 
-def read_launches(pc, wa) -> dict:
+def read_launches() -> dict:
     """Calls of each kernel since ``zero_launches``; window attention by
     input type (``window_attn``: float32, ``window_attn_bf16``)."""
-    bf16 = wa.window_attn_cuda.launches_bf16
-    return dict(post_chain=pc.post_chain_cuda.launches,
-                window_attn=wa.window_attn_cuda.launches - bf16, window_attn_bf16=bf16)
+    from havc_tpu_torch.utils.profiling import counters
+
+    c = counters()
+    bf16 = c.get("window_attn_launches_bf16", 0)
+    return dict(post_chain=c.get("post_chain_launches", 0),
+                window_attn=c.get("window_attn_launches", 0) - bf16, window_attn_bf16=bf16)
 
 
 def phase_classic_path(ht, pc, wa, card: str, name: str, kw: dict, want_post_chain: int):
@@ -851,11 +859,11 @@ def phase_classic_path(ht, pc, wa, card: str, name: str, kw: dict, want_post_cha
               for k, m in engines.registry._cache.items()}
 
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(pc, wa)
+    zero_launches()
     t0 = time.perf_counter()
     out = run()
     wall_s = time.perf_counter() - t0
-    launches = read_launches(pc, wa)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     enable_profiling(True)
@@ -905,11 +913,11 @@ def phase_streaming_tuned(ht, pc, wa, card: str, src: str, tmp: str):
                                       count=n_frames, chunk_size=chunk, sink="null")
 
     first_n, first_s = timed(run)
-    zero_launches(pc, wa)
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     with Recorder(streaming) as rec:
         (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
-    launches = read_launches(pc, wa)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     transfer = streaming.last_transfer()
     packed = rec.joined("packed")
@@ -986,11 +994,11 @@ def phase_exemplar_path(ht, pc, wa, card: str):
     first_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(pc, wa)
+    zero_launches()
     t0 = time.perf_counter()
     out = run()
     wall_s = time.perf_counter() - t0
-    by_kernel = read_launches(pc, wa)
+    by_kernel = read_launches()
     launches = by_kernel["window_attn_bf16"]
     peak = torch.cuda.max_memory_allocated()
 
@@ -1164,10 +1172,10 @@ def drive_exemplar_path(ht, pc, wa, card: str, name: str, run, frames_n: int,
 
     _, first_s = timed(run)
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(pc, wa)
+    zero_launches()
     with LoopSyncs(exemplar) as loop:
         out, wall_s = timed(run)
-    launches = read_launches(pc, wa)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     enable_profiling(True)
     reset_stages()
@@ -1413,10 +1421,10 @@ def drive_engine_path(ht, pc, wa, card: str, name: str, run, frames_n: int, want
 
     _, first_s = timed(run)
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(pc, wa)
+    zero_launches()
     with LoopSyncs(exemplar, PROPAGATES) as loop:
         out, wall_s = timed(run)
-    launches = read_launches(pc, wa)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     enable_profiling(True)
     reset_stages()
@@ -1846,9 +1854,9 @@ def phase_scene_detectors(ht, pc, wa, card: str, tmp: str) -> dict:
     by_path = {}
     for name, (run, run_cpu) in runs.items():
         run()
-        zero_launches(pc, wa)
+        zero_launches()
         flags, wall_s = timed(run)
-        by_path[name] = read_launches(pc, wa)
+        by_path[name] = read_launches()
         _, syncs, sites = count_syncs(run)
         cpu_flags, cpu_s = timed(run_cpu)
         luma_err = float(np.abs(flags.luma - cpu_flags.luma).max())
@@ -1878,9 +1886,9 @@ def phase_scene_detectors(ht, pc, wa, card: str, tmp: str) -> dict:
                                                 sc_algo=2, ref_ext="png")
 
     extract()
-    zero_launches(pc, wa)
+    zero_launches()
     written, wall_s = timed(extract)
-    by_path["HAVC_extract_reference_frames/sc_algo2"] = read_launches(pc, wa)
+    by_path["HAVC_extract_reference_frames/sc_algo2"] = read_launches()
     _, syncs, sites = count_syncs(extract)
     gpu_x = motion.scene_detect_xvid(frames)
     cpu_x = motion.scene_detect_xvid(host, device="cpu")
@@ -1975,9 +1983,9 @@ def peak_run(run, pc, wa):
     after a warm-up; the launch counts are set to 0 just before it."""
     run()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(pc, wa)
+    zero_launches()
     out, wall_s = timed(run)
-    return out, wall_s, torch.cuda.max_memory_allocated(), read_launches(pc, wa)
+    return out, wall_s, torch.cuda.max_memory_allocated(), read_launches()
 
 
 def phase_overlay_degrain(ht, pc, wa, card: str) -> dict:
@@ -2170,9 +2178,9 @@ def phase_legacy_paths(ht, pc, wa, card: str) -> dict:
         warnings.simplefilter("ignore", DeprecationWarning)
         for name, (run, want) in runs.items():
             _, first_s = timed(run)
-            zero_launches(pc, wa)
+            zero_launches()
             out, wall_s = timed(run)
-            by_path[name] = read_launches(pc, wa)
+            by_path[name] = read_launches()
             f = out.frames
             finite = bool(torch.isfinite(f).all().item())
             emit(dict(phase="legacy_paths", card=card, path=name, clip=list(f.shape),
@@ -2381,11 +2389,11 @@ def phase_streaming(ht, pc, wa, card: str, tmp: str, has_cv2: bool):
 
     # the second call, every frame with its transfers; the kernel counts
     # are zeroed just before it and read just after
-    zero_launches(pc, wa)
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     with Recorder(streaming, keep_bytes=False) as rec:
         (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(lambda: run()))
-    launches = read_launches(pc, wa)
+    launches = read_launches()
     transfer = streaming.last_transfer()
     peak_136 = torch.cuda.max_memory_allocated()
     waits = rec.waits()
@@ -2547,10 +2555,10 @@ def phase_restore_streaming(pc, wa, card: str, tmp: str):
         exemplar.colormnet_propagate = real_propagate
     cuts = np.nonzero(np.concatenate(flags))[0].tolist()
 
-    zero_launches(pc, wa)
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
-    by_kernel = read_launches(pc, wa)
+    by_kernel = read_launches()
     launches = by_kernel["window_attn_bf16"]
     peak = torch.cuda.max_memory_allocated()
     transfer = streaming.last_transfer()
@@ -2614,10 +2622,10 @@ def phase_restore_streaming_engines(pc, wa, card: str, tmp: str) -> dict:
 
         with Recorder(streaming) as rec16:
             first_n, first_s = timed(run)
-        zero_launches(pc, wa)
+        zero_launches()
         torch.cuda.reset_peak_memory_stats()
         (n, sync_n, sync_sites), wall_s = timed(lambda: count_syncs(run))
-        launches = read_launches(pc, wa)
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         with Recorder(streaming) as rec48, LoopSyncs(exemplar, (prop,)) as loop:
             n48, wall48_s = timed(lambda: run(chunk_size=RESTORE_T))
@@ -2786,12 +2794,12 @@ def phase_exemplar_f32_vs_bf16(ht, pc, wa, card: str, tmp: str) -> dict:
         walls, outs, launches, syncs, peaks = {f32: [], b16: []}, {}, {}, {}, {}
         for dtype in (b16, f32, f32, b16):
             torch.cuda.reset_peak_memory_stats()
-            zero_launches(pc, wa)
+            zero_launches()
             with Precision(exemplar, dtype), LoopSyncs(exemplar, scans) as loop, \
                     Recorder(streaming) as rec:
                 out, wall_s = timed(run)
             walls[dtype].append(wall_s)
-            launches[dtype] = read_launches(pc, wa)
+            launches[dtype] = read_launches()
             syncs[dtype] = loop.by_name
             peaks[dtype] = torch.cuda.max_memory_allocated()
             outs[dtype] = rec.joined("packed") if name == "restore_streaming" else out
@@ -2900,11 +2908,11 @@ def phase_scene_parallel_path(ht, pc, wa, card: str) -> dict:
 
         _, first_s = timed(run)
         torch.cuda.reset_peak_memory_stats()
-        zero_launches(pc, wa)
+        zero_launches()
         with LoopSyncs(exemplar, ("colormnet_propagate", "colormnet_propagate_scenes")) as loop, \
                 Captured(exemplar) as cap:
             out, wall_s = timed(run)
-        launches = read_launches(pc, wa)
+        launches = read_launches()
         by_path[name] = launches
         outs[name] = (out.frames, cap.ab[0])
         rows[name] = dict(first_call_s=first_s, wall_s=wall_s, fps=SCENE_T / wall_s,
@@ -3081,9 +3089,9 @@ def phase_mesh_paths(ht, pc, wa, card: str) -> dict:
     steps = {}
     for name, step in (("mesh1", step1), ("mesh2", step2)):
         step(do_p, dd_p, clip8)
-        zero_launches(pc, wa)
+        zero_launches()
         (out, lum), wall_s = timed(lambda: step(do_p, dd_p, clip8))
-        by_path[f"mesh_paths/classic_{name}"] = read_launches(pc, wa)
+        by_path[f"mesh_paths/classic_{name}"] = read_launches()
         steps[name] = (out, lum, wall_s)
     check("sharded_classic_pipeline", (ref_out, steps["mesh1"][0]), steps["mesh2"][0], True)
     rows["sharded_classic_pipeline"].update(

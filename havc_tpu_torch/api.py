@@ -57,6 +57,8 @@ from .ops import tiles as tiles_ops
 from .ops.post_chain import post_chain
 from .ops.resize import resize
 from .scene.detect import scene_detect
+from .utils import profiling
+from .utils.log import HAVC_LogMessage, MessageType
 from .utils.profiling import resolve_device, stage_timer
 
 __all__ = [
@@ -117,9 +119,14 @@ _DEBUG_LEVEL = [0]
 
 
 def HAVC_set_debug_level(debug_level: int = 0):
-    """0 = silent, 1 = info (stage timing), 2 = info + debug."""
+    """0 = silent; 1 = info: stage timing on, and ``HAVC_main`` logs
+    (``utils.log``, level INFO) once per call the table of its stages:
+    each stage's device ms (CUDA events, no sync), host ms, self ms (less
+    the stages inside it) and calls, then the counters (``host_syncs``,
+    ``clips``, the kernels' launches); 2 = info + debug."""
     if debug_level in (0, 1, 2):
         _DEBUG_LEVEL[0] = debug_level
+        profiling.set_debug_timing(debug_level >= 1)
 
 
 def _on(clip: Clip, dev: torch.device):
@@ -284,11 +291,13 @@ def _colorize_fused(
         return clip.map_batches(stage, batch_size)
     if len(sc_idx) == 0:
         return clip
-    picked = torch.cat([clip.frames[i:i + 1] for i in sc_idx])
+    with stage_timer("sc_gather"):
+        picked = torch.cat([clip.frames[i:i + 1] for i in sc_idx])
     colored = Clip(frames=picked).map_batches(stage, batch_size).frames
-    out = clip.frames.clone()
-    for j, i in enumerate(sc_idx):
-        out[i] = colored[j]
+    with stage_timer("sc_scatter"):
+        out = clip.frames.clone()
+        for j, i in enumerate(sc_idx):
+            out[i] = colored[j]
     return clip.with_frames(out)
 
 
@@ -740,7 +749,7 @@ def HAVC_clip_slice(
         raise ValueError("HAVC_clip_slice: slices must be 2 or 4")
     c, to_host = _on(clip, resolve_device(device))
     tiles, meta = tiles_ops.slice_tiles(c.frames, rows, cols, overlap_x, overlap_y=overlap_y)
-    tiles_clip = Clip(frames=tiles.cpu().numpy() if to_host else tiles, fps=clip.fps)
+    tiles_clip = Clip(frames=profiling.host_read(tiles) if to_host else tiles, fps=clip.fps)
     return ClipTiles(clip, tiles_clip, meta, overlap_x, overlap_y if slices == 4 else 0)
 
 
@@ -1143,16 +1152,16 @@ def HAVC_main_presets(
                                 batch_size=batch_size, device=dev)
         BlackWhiteTune, BlackWhiteMode, BlackWhiteBlend = "light", 0, True
 
-    with stage_timer("colorizer"):
-        clip_colored = HAVC_main_colorizer(
-            work, Preset, ColorModel, CombMethod, VideoTune, ColorFix,
-            ColorTemp, ColorTune, ColorMap, EnableDeepEx, DeepExMethod,
-            DeepExPreset, DeepExRefMerge, DeepExOnlyRefFrames, ScFrameDir,
-            ScThreshold, ScThtOffset, ScMinFreq, ScMinInt, ScThtSSIM,
-            ScNormalize, DeepExModel, DeepExVivid, DeepExEncMode,
-            DeepExMaxMemFrames, FrameInterp, RefRange, enable_fp16,
-            debug_level, engine_config, batch_size, device=dev,
-        )
+    # no span around the colorizer: its stages are the top-level spans
+    clip_colored = HAVC_main_colorizer(
+        work, Preset, ColorModel, CombMethod, VideoTune, ColorFix,
+        ColorTemp, ColorTune, ColorMap, EnableDeepEx, DeepExMethod,
+        DeepExPreset, DeepExRefMerge, DeepExOnlyRefFrames, ScFrameDir,
+        ScThreshold, ScThtOffset, ScMinFreq, ScMinInt, ScThtSSIM,
+        ScNormalize, DeepExModel, DeepExVivid, DeepExEncMode,
+        DeepExMaxMemFrames, FrameInterp, RefRange, enable_fp16,
+        debug_level, engine_config, batch_size, device=dev,
+    )
 
     if BWTuneRetinex:
         with stage_timer("retinex_tweak"):
@@ -1393,38 +1402,46 @@ def HAVC_main(
     """Top-level entry, same names and defaults as the JAX package's.
     Placebo runs HAVC_placebo_preset (tiled), VerySlow HAVC_veryslow_preset
     (two passes at 'Slower', DeepEx off), the others HAVC_main_presets.
-    ``BWTune`` is a legacy alias of BlackWhiteTune."""
+    ``BWTune`` is a legacy alias of BlackWhiteTune.  Each call is counted
+    in the ``clips`` counter; at ``debug_level`` 1 and above it logs its
+    stages (``HAVC_set_debug_level``)."""
     if BWTune is not None:
         BlackWhiteTune = BWTune
     HAVC_set_debug_level(debug_level)
     dev = resolve_device(device)
 
     speed_id, _, _ = presets.get_render_factors(Preset)
-    if speed_id == 0:
-        return HAVC_placebo_preset(
-            clip, CombMethod, VideoTune, ColorModel, ColorFix, ColorTune,
-            ColorMap, ColorTemp, FrameInterp, BlackWhiteTune,
-            BlackWhiteMode, BlackWhiteBlend, RefRange, enable_fp16,
-            debug_level, engine_config=engine_config, batch_size=batch_size, device=dev,
-        )
-    if speed_id == 1:
-        return HAVC_veryslow_preset(
-            clip, "slower", FrameInterp, ColorModel, CombMethod, VideoTune,
-            ColorFix, ColorTune, ColorMap, ColorTemp, BlackWhiteTune,
-            BlackWhiteMode, BlackWhiteBlend, EnableDeepEx=False,
-            RefRange=RefRange, enable_fp16=enable_fp16, debug_level=debug_level,
-            engine_config=engine_config, batch_size=batch_size, device=dev,
-        )
-    return HAVC_main_presets(
-        clip, Preset, FrameInterp, ColorModel, CombMethod, VideoTune,
-        ColorFix, ColorTune, ColorMap, ColorTemp, BlackWhiteTune,
-        BlackWhiteMode, BlackWhiteBlend, EnableDeepEx, DeepExMethod,
-        DeepExPreset, DeepExRefMerge, DeepExOnlyRefFrames, ScFrameDir,
-        ScThreshold, ScThtOffset, ScMinFreq, ScMinInt, ScThtSSIM,
-        ScNormalize, DeepExModel, DeepExVivid, DeepExEncMode,
-        DeepExMaxMemFrames, RefRange, enable_fp16, debug_level,
-        engine_config, batch_size, device=dev,
-    )
+    with profiling.clip_scope() as call:
+        if speed_id == 0:
+            out = HAVC_placebo_preset(
+                clip, CombMethod, VideoTune, ColorModel, ColorFix, ColorTune,
+                ColorMap, ColorTemp, FrameInterp, BlackWhiteTune,
+                BlackWhiteMode, BlackWhiteBlend, RefRange, enable_fp16,
+                debug_level, engine_config=engine_config, batch_size=batch_size, device=dev,
+            )
+        elif speed_id == 1:
+            out = HAVC_veryslow_preset(
+                clip, "slower", FrameInterp, ColorModel, CombMethod, VideoTune,
+                ColorFix, ColorTune, ColorMap, ColorTemp, BlackWhiteTune,
+                BlackWhiteMode, BlackWhiteBlend, EnableDeepEx=False,
+                RefRange=RefRange, enable_fp16=enable_fp16, debug_level=debug_level,
+                engine_config=engine_config, batch_size=batch_size, device=dev,
+            )
+        else:
+            out = HAVC_main_presets(
+                clip, Preset, FrameInterp, ColorModel, CombMethod, VideoTune,
+                ColorFix, ColorTune, ColorMap, ColorTemp, BlackWhiteTune,
+                BlackWhiteMode, BlackWhiteBlend, EnableDeepEx, DeepExMethod,
+                DeepExPreset, DeepExRefMerge, DeepExOnlyRefFrames, ScFrameDir,
+                ScThreshold, ScThtOffset, ScMinFreq, ScMinInt, ScThtSSIM,
+                ScNormalize, DeepExModel, DeepExVivid, DeepExEncMode,
+                DeepExMaxMemFrames, RefRange, enable_fp16, debug_level,
+                engine_config, batch_size, device=dev,
+            )
+    if _DEBUG_LEVEL[0] >= 1:
+        HAVC_LogMessage(MessageType.INFORMATION,
+                        f"HAVC_main call {call}:\n{profiling.stage_report(clip=call)}")
+    return out
 
 
 

@@ -13,6 +13,8 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from .utils.profiling import host_read
+
 __all__ = ["Clip", "ClipInfo", "SceneFlags", "from_frames"]
 
 
@@ -116,7 +118,7 @@ class Clip:
     def to_host(self) -> "Clip":
         if not self.on_device:
             return self
-        return replace(self, frames=self.frames.cpu().numpy())
+        return replace(self, frames=host_read(self.frames))
 
     def with_sc(self, sc: SceneFlags) -> "Clip":
         return replace(self, sc=sc)

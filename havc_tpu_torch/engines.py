@@ -33,7 +33,7 @@ from .ops import equalize
 from .ops.chroma import chroma_tweak
 from .ops.chroma import tweak as op_tweak
 from .utils.precision import engine_precision
-from .utils.profiling import on_device, resolve_device
+from .utils.profiling import host_read, on_device, resolve_device
 
 __all__ = [
     "EngineRegistry",
@@ -210,7 +210,7 @@ def make_deoldify_fn(model: int = 0, render_factor: int = 24, device=None) -> Ca
 
 def _residency(frames, out: torch.Tensor):
     """``out`` as numpy when ``frames`` was numpy."""
-    return out if isinstance(frames, torch.Tensor) else out.cpu().numpy()
+    return out if isinstance(frames, torch.Tensor) else host_read(out)
 
 
 @torch.inference_mode()

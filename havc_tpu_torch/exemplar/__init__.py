@@ -73,7 +73,7 @@ from ..presets import get_colormap
 from ..scene.detect import scene_detect
 from ..utils.log import HAVC_LogMessage, MessageType
 from ..utils.precision import engine_precision
-from ..utils.profiling import resolve_device, stage_timer
+from ..utils.profiling import host_read, resolve_device, stage_timer
 from .allrefs import allrefs_feed_schedule, allrefs_step_schedule
 
 __all__ = [
@@ -356,7 +356,8 @@ def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool,
 
 
 def _host_flags(is_ref) -> np.ndarray:
-    return np.asarray(is_ref.cpu() if isinstance(is_ref, torch.Tensor) else is_ref).astype(bool)
+    return (host_read(is_ref) if isinstance(is_ref, torch.Tensor) else np.asarray(is_ref)
+            ).astype(bool)
 
 
 def colormnet_propagate(

@@ -6,8 +6,9 @@ Three functions:
 * ``post_chain_reference(frames, **kw)`` — the plain PyTorch version, a
   line-for-line copy of ``havc_tpu.ops.pallas_kernels._post_math``;
 * ``post_chain_cuda(frames, **kw)`` — the CUDA C++ kernel
-  (``csrc/post_chain.cu``) on a CUDA tensor; ``post_chain_cuda.launches``
-  counts its launches;
+  (``csrc/post_chain.cu``) on a CUDA tensor; the counter
+  ``post_chain_launches`` (``utils.profiling.counters()``) counts its
+  launches;
 * ``post_chain(frames, **kw)`` — the dispatcher: the plain version for a
   tensor on the CPU, the kernel for a tensor on CUDA.  There is no
   fallback: a CUDA tensor never reaches the plain version, and a build or
@@ -25,6 +26,7 @@ import ctypes
 import torch
 
 from .. import kernels
+from ..utils.profiling import count
 from .colorspace import pymod
 
 __all__ = ["post_chain", "post_chain_cuda", "post_chain_reference", "check_range_forms",
@@ -215,11 +217,8 @@ def post_chain_cuda(frames: torch.Tensor, **kw) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"post_chain_cuda: launch failed with CUDA error {rc}")
-    post_chain_cuda.launches += 1
+    count("post_chain_launches")
     return out
-
-
-post_chain_cuda.launches = 0
 
 
 def check_range_forms() -> list:

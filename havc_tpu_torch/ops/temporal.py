@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import host_upload
 from .chroma import restore_color
 from .colorspace import rgb_to_yuv, yuv_to_rgb_preserve_luma
 
@@ -60,7 +61,7 @@ def _segments(scenechange, T: int, device) -> torch.Tensor:
     """Scene segment id per frame: cumulative count of scene starts."""
     if scenechange is None:
         return torch.zeros((T,), dtype=torch.int32, device=device)
-    sc = torch.as_tensor(scenechange, device=device).to(torch.int32)
+    sc = host_upload(scenechange, device).to(torch.int32)
     return torch.cumsum(sc, dim=0)
 
 

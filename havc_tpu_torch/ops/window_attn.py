@@ -18,8 +18,9 @@ Three functions, as for the post chain:
 * ``window_attn_cuda`` — the CUDA C++ kernels on CUDA tensors: float32
   inputs in two launches (``csrc/window_attn.cu``: weights, then the
   weighted sum), bf16 inputs in one launch on the tensor cores
-  (``csrc/window_attn_tc.cu``); ``window_attn_cuda.launches`` counts its
-  calls, ``launches_bf16`` those on bf16 inputs;
+  (``csrc/window_attn_tc.cu``); the counter ``window_attn_launches``
+  (``utils.profiling.counters()``) counts its calls,
+  ``window_attn_launches_bf16`` those on bf16 inputs;
 * ``window_attn`` — the dispatcher: the plain version for CPU tensors, the
   kernel for CUDA tensors, no fallback.
 """
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..utils.precision import ieee_precision
+from ..utils.profiling import count
 
 __all__ = ["window_attn", "window_attn_cuda", "window_attn_reference"]
 
@@ -126,8 +128,8 @@ def scratch(q, max_dis: int) -> torch.Tensor:
 def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
     """Launch the CUDA kernels; every input a contiguous CUDA tensor on
     one device, all float32 (two launches) or all bfloat16 (one launch).
-    Each call is counted once in ``launches`` and, on bf16 inputs, in
-    ``launches_bf16`` too."""
+    Each call is counted once in ``window_attn_launches`` and, on bf16
+    inputs, in ``window_attn_launches_bf16`` too."""
     _check(q, k, v, rel, max_dis)
     b, h, w, _ = q.shape
     out = torch.empty((b, h, w, v.shape[-1]), dtype=torch.float32, device=q.device)
@@ -135,15 +137,11 @@ def window_attn_cuda(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:
         return out
     if q.dtype == torch.bfloat16:
         _launch_tc(q, k, v, rel, out, max_dis)
-        window_attn_cuda.launches_bf16 += 1
+        count("window_attn_launches_bf16")
     else:
         launch_stages(q, k, v, rel, scratch(q, max_dis), out, max_dis, 3)
-    window_attn_cuda.launches += 1
+    count("window_attn_launches")
     return out
-
-
-window_attn_cuda.launches = 0
-window_attn_cuda.launches_bf16 = 0
 
 
 def window_attn(q, k, v, rel, max_dis: int = 7) -> torch.Tensor:

@@ -27,7 +27,7 @@ import torch
 from ..clip import SceneFlags
 from ..ops.colorspace import luma
 from ..ops.resize import resize
-from ..utils.profiling import on_device
+from ..utils.profiling import host_read, on_device
 
 __all__ = ["SceneFlags", "SceneDetector", "StreamSceneDetector", "scene_detect",
            "frame_stats"]
@@ -100,10 +100,10 @@ def frame_stats(frames, offset: int = 1, normalize: bool = False, need_maps: boo
     with torch.inference_mode():
         gray_small = _gray_maps(on_device(frames, device), normalize)
         lumas, diffs, hists = _stats(gray_small, offset, need_maps)
-        lumas, diffs = torch.stack([lumas, diffs]).cpu().numpy()
+        lumas, diffs = host_read(torch.stack([lumas, diffs]))
         if not need_maps:
             return None, lumas, diffs, None
-        return gray_small.cpu().numpy(), lumas, diffs, hists.cpu().numpy()
+        return host_read(gray_small), lumas, diffs, host_read(hists)
 
 
 def _ssim_uniform(a: np.ndarray, b: np.ndarray, win: int = 7) -> float:
@@ -442,11 +442,11 @@ class StreamSceneDetector:
                 k = self._tail.shape[0]
                 gray_small = torch.cat([self._tail, gray_small], dim=0)
             lumas, diffs, hists = _stats(gray_small, self.t_offset, self.need_maps)
-            lumas, diffs = torch.stack([lumas, diffs])[:, k:].cpu().numpy()
+            lumas, diffs = host_read(torch.stack([lumas, diffs])[:, k:])
             self._tail = gray_small[-min(self.t_offset, gray_small.shape[0]):]
             if self.need_maps:
-                grays = gray_small[k:].cpu().numpy()
-                hists = hists[k:].cpu().numpy()
+                grays = host_read(gray_small[k:])
+                hists = host_read(hists[k:])
 
         if self.use_custom:
             ml = self.m_length if self.need_maps else DEF_SC_MIN_DISTANCE

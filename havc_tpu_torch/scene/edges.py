@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from ..clip import SceneFlags
 from ..ops.resize import resize
 from ..utils.precision import ieee_precision
-from ..utils.profiling import on_device
+from ..utils.profiling import host_read, on_device
 from .detect import DEF_THT_WHITE, _ssim_uniform, _work_size
 
 __all__ = ["edge_stats", "scene_detect_edges", "kirsch_edges", "sobel_magnitude",
@@ -135,8 +135,8 @@ def edge_stats(frames, offset: int = 2, device=None):
     ssim_diff (plain), lumas) of (T, H, W, 3) RGB frames."""
     gray_small = _gray_small(frames, device)
     mask, edge_diff, ssim_diff, lumas = _edge_kernel(gray_small, offset)
-    edge_diff, ssim_diff, lumas = torch.stack([edge_diff, ssim_diff, lumas]).cpu().numpy()
-    return gray_small.cpu().numpy(), mask.cpu().numpy(), edge_diff, ssim_diff, lumas
+    edge_diff, ssim_diff, lumas = host_read(torch.stack([edge_diff, ssim_diff, lumas]))
+    return host_read(gray_small), host_read(mask), edge_diff, ssim_diff, lumas
 
 
 @torch.inference_mode()
@@ -149,8 +149,8 @@ def _detector_stats(frames, offset: int, need_maps: bool, device):
     t = gray_small.shape[0]
     prev = gray_small[torch.clamp(torch.arange(t, device=gray_small.device) - 1, 0, t - 1)]
     prev_diff = (gray_small - prev).abs().mean(dim=(-2, -1))
-    stats = torch.stack([edge_diff, ssim_diff, lumas, prev_diff]).cpu().numpy()
-    return stats, gray_small.cpu().numpy() if need_maps else None
+    stats = host_read(torch.stack([edge_diff, ssim_diff, lumas, prev_diff]))
+    return stats, host_read(gray_small) if need_maps else None
 
 
 def scene_detect_edges(

@@ -16,7 +16,7 @@ import torch
 from ..clip import SceneFlags
 from ..ops.colorspace import luma
 from ..ops.resize import resize
-from ..utils.profiling import on_device
+from ..utils.profiling import host_read, on_device
 from .detect import _work_size
 
 __all__ = ["motion_stats", "scene_detect_motion", "scene_detect_xvid"]
@@ -66,14 +66,14 @@ def motion_stats(frames, search: int = 4, device=None):
     """numpy (best block SAD per pixel (T, H/B, W/B), mean luma (T,))."""
     gray = _block_gray(frames, device)
     best = _motion_kernel(gray, search)
-    return best.cpu().numpy(), gray.mean(dim=(-2, -1)).cpu().numpy()
+    return host_read(best), host_read(gray.mean(dim=(-2, -1)))
 
 
 def _fraction_and_luma(votes: torch.Tensor, gray: torch.Tensor):
     """Each frame's share of voting blocks (counted on the device, divided
     on the host in float64 as the JAX package's numpy mean does) and its
     mean luma, in one copy to the host."""
-    counts, lumas = torch.stack([votes.sum(dim=1).float(), gray.mean(dim=(-2, -1))]).cpu().numpy()
+    counts, lumas = host_read(torch.stack([votes.sum(dim=1).float(), gray.mean(dim=(-2, -1))]))
     return counts.astype(np.float64) / votes.shape[1], lumas
 
 

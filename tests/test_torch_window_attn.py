@@ -22,6 +22,13 @@ import torch
 import torch.nn.functional as F
 
 from havc_tpu_torch.ops import window_attn as wa
+from havc_tpu_torch.utils.profiling import counters
+
+
+def _launches(name: str) -> int:
+    """The kernel launch counter ``name`` of the port's registry."""
+    return counters().get(name, 0)
+
 
 TOL = 1e-5
 
@@ -75,9 +82,9 @@ def test_out_of_frame_offsets_get_no_weight():
 
 def test_cpu_tensor_takes_plain_version():
     q, k, v, rel = map(torch.from_numpy, _inputs((1, 4, 5, 8), 16, 7, 4))
-    before = wa.window_attn_cuda.launches
+    before = _launches("window_attn_launches")
     got = wa.window_attn(q, k, v, rel)
-    assert wa.window_attn_cuda.launches == before
+    assert _launches("window_attn_launches") == before
     assert torch.equal(got, wa.window_attn_reference(q, k, v, rel))
 
 
@@ -85,9 +92,9 @@ def test_cpu_bf16_tensors_take_plain_version_in_float32():
     """bf16 inputs are computed with in float32 and give a float32 result,
     the plain version on the upcast values."""
     q, k, v, rel = (torch.from_numpy(x).bfloat16() for x in _inputs((1, 4, 5, 8), 16, 7, 4))
-    before = wa.window_attn_cuda.launches
+    before = _launches("window_attn_launches")
     got = wa.window_attn(q, k, v, rel)
-    assert wa.window_attn_cuda.launches == before and got.dtype == torch.float32
+    assert _launches("window_attn_launches") == before and got.dtype == torch.float32
     assert torch.equal(got, wa.window_attn_reference(q.float(), k.float(), v.float(),
                                                      rel.float()))
 
@@ -111,10 +118,10 @@ CARD_CASES = [((1, 14, 28, 64), 1024, 7, 0), ((4, 14, 28, 64), 1024, 7, 1),
 def test_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
     _need_cuda()
     q, k, v, rel = (torch.from_numpy(x).cuda() for x in _inputs(shape, d_vu, max_dis, seed))
-    before = wa.window_attn_cuda.launches
+    before = _launches("window_attn_launches")
     got = wa.window_attn(q, k, v, rel, max_dis=max_dis)
     torch.cuda.synchronize()
-    assert wa.window_attn_cuda.launches == before + 1
+    assert _launches("window_attn_launches") == before + 1
     want = wa.window_attn_reference(q, k, v, rel, max_dis=max_dis)
     assert (got - want).abs().max().item() <= TOL
 
@@ -136,10 +143,10 @@ def test_bf16_kernel_matches_plain_version_on_card(shape, d_vu, max_dis, seed):
     _need_cuda()
     q, k, v, rel = (torch.from_numpy(x).cuda().bfloat16()
                     for x in _inputs(shape, d_vu, max_dis, seed))
-    before = (wa.window_attn_cuda.launches, wa.window_attn_cuda.launches_bf16)
+    before = (_launches("window_attn_launches"), _launches("window_attn_launches_bf16"))
     got = wa.window_attn(q, k, v, rel, max_dis=max_dis)
     torch.cuda.synchronize()
-    assert (wa.window_attn_cuda.launches, wa.window_attn_cuda.launches_bf16) == \
+    assert (_launches("window_attn_launches"), _launches("window_attn_launches_bf16")) == \
         (before[0] + 1, before[1] + 1)
     assert got.dtype == torch.float32
     want = wa.window_attn_reference(q, k, v, rel, max_dis=max_dis)
