@@ -12,7 +12,8 @@ insert.  Everything the JAX scan decides with ``lax.cond`` from the
 reference flags, the all-refs schedules and the frame counter (memory
 cadence, exemplar inserts, deep updates, the vivid reset) is decided here
 on the host before any device work is queued, so the loop never waits for
-the card.
+the card.  On the card each of those plans of a step runs as a replay of
+a CUDA graph captured at its first step, over the engine's own carry.
 
 Deep-Exemplar (``ex_model`` 1, ``deepex_propagate``) pins each scene's
 reference and last prediction, so every frame of a scene is independent:
@@ -53,7 +54,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import warnings
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,7 +74,7 @@ from ..presets import get_colormap
 from ..scene.detect import scene_detect
 from ..utils.log import HAVC_LogMessage, MessageType
 from ..utils.precision import engine_precision
-from ..utils.profiling import host_read, resolve_device, stage_timer
+from ..utils.profiling import count, counters, host_read, resolve_device, stage_timer
 from .allrefs import allrefs_feed_schedule, allrefs_step_schedule
 
 __all__ = [
@@ -206,6 +207,10 @@ class ColorMNetEngine:
             warnings.warn("ColorMNet engine: weights_dir is set but no converted checkpoint "
                           "(colormnet.npz) was found; random init")
         self.net = _cast_net(registry.colormnet(config, self.device), self.dtype)
+        # the frame loop's own carry and its captured step graphs, made on
+        # the first ``colormnet_propagate`` that needs them
+        self.carry = None
+        self.step_graphs = None
 
 
 def _lab_l3(rgb: torch.Tensor) -> torch.Tensor:
@@ -237,6 +242,29 @@ def _cm_init_carry(engine: ColorMNetEngine, scenes: Optional[int] = None):
             torch.zeros((b, engine.key_dim, h16, w16), **kw),
             torch.zeros((2 * b, engine.value_dim, h16, w16), **kw),
             0, 0)
+
+
+def _cm_clear_device(carry) -> None:
+    """The device part of ``carry`` refilled in place with
+    ``_cm_init_carry``'s values."""
+    state, hidden, last_key, last_value = carry[:4]
+    mem.clear_device(state)
+    for t in (hidden, last_key, last_value):
+        t.zero_()
+
+
+def _cm_owned_carry(engine: ColorMNetEngine):
+    """The engine's own carry, emptied in place (made on first use): the
+    storage every call without ``resume_state`` or ``return_state`` runs
+    on, and the step graphs read and write, so an engine runs one such
+    call at a time."""
+    if engine.carry is None:
+        engine.carry = _cm_init_carry(engine)
+    else:
+        mem.clear_host(engine.carry[0])
+        _cm_clear_device(engine.carry)
+    engine.carry = engine.carry[:4] + (0, 0)
+    return engine.carry
 
 
 def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Tensor,
@@ -279,14 +307,53 @@ def _cm_prepare(engine: ColorMNetEngine, frames: torch.Tensor, ref_ab: torch.Ten
     return (frames_l3, g16, g8, g4, key, shrink, sel, rab), ref_pre, (lh, lw, fh, fw)
 
 
+class _StepPlan(NamedTuple):
+    """The host's decisions of one frame step, taken from the reference
+    flags and the carry's counters before any of its device work: the key
+    of its captured graph."""
+
+    reset: bool  # a vivid rebuild of the core comes first
+    ref: bool  # the frame is a reference
+    is_mem: bool  # the frame is encoded and inserted into the memory
+    seg_ran: bool  # the readout counts its matches (usage)
+    exem_full: bool  # the exemplar's insert fills the working store: consolidate
+    frame_full: bool  # the frame's insert fills it: consolidate
+
+
+# the most plans one (engine, vivid, frame_propagate) can meet (see
+# ``_build_cm_step``); ``_StepGraphs`` refuses a plan past it
+MAX_STEP_PLANS = 14
+
+
+class _CMStep(NamedTuple):
+    """A frame step in two parts: ``plan(carry, ref_flag, reset) -> (plan,
+    carry)`` takes every decision and keeps the host's counters, ``run(carry,
+    x, ref, plan) -> ab`` queues the device work, in place on the carry's
+    tensors."""
+
+    plan: Callable
+    run: Callable
+
+
 def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool,
-                   scenes: Optional[int] = None):
-    """The per-frame InferenceCore step ``step(carry, x, ref, reset) ->
-    (carry, ab)``: ``x`` holds the frame's precomputed inputs and its
-    reference flag, ``ref`` the exemplar's (or None), ``reset`` says whether
-    a vivid run rebuilds the core first; ``ab`` is the (2, H, W)
-    prediction.  Every branch is taken on the host from the flags and the
-    carry's frame counters.
+                   scenes: Optional[int] = None) -> _CMStep:
+    """The per-frame InferenceCore step (``_CMStep``): ``ref_flag`` says
+    whether the frame is a reference, ``reset`` whether a vivid run
+    rebuilds the core first; ``x`` holds the frame's precomputed inputs,
+    ``ref`` the exemplar's (or None); ``ab`` is the (2, H, W) prediction.
+    Every branch is taken on the host from the flags and the carry's frame
+    counters.
+
+    The step updates the carry's tensors in place and never replaces one
+    (a rebuild refills them), so a captured CUDA graph of ``run`` reads and
+    writes the same storage on every replay.  The plans it can meet, for
+    one engine, ``vivid`` and ``frame_propagate``: with exemplar inserts
+    (``vivid`` or not ``frame_propagate``) ``seg_ran`` is always set and
+    a step is a reference (``exem_full``, ``frame_full`` free: 4), a
+    memory frame (``frame_full`` free: 2) or neither (1), each with
+    ``reset`` set or not where ``vivid``: at most 14; without them
+    ``reset`` is never set, a reference has ``seg_ran`` unset (2), a
+    memory frame (4) and a plain frame (2) have it either way: at most 8.
 
     ``scenes`` S runs S independent scenes in one step: ``x`` and ``ref``
     hold one frame per scene (leading S), the carry is
@@ -303,56 +370,149 @@ def _build_cm_step(engine: ColorMNetEngine, vivid: bool, frame_propagate: bool,
     def tok(x):  # (b, C, h, w) -> (P, C), or (S, P, C) in a scene batch
         return _tokens(x)[0] if scenes is None else _tokens(x)
 
-    def step(carry, x, ref, reset):
-        frame_l3, g16, g8, g4, key, shrink, sel, rab, ref_flag = x
-        if vivid and reset:  # the whole InferenceCore is rebuilt
-            carry = _cm_init_carry(engine, scenes)
+    def plan(carry, ref_flag, reset):
+        count("cm_steps")
         state, hidden, last_key, last_value, frame_idx, last_mem_t = carry
-        qk, qe = tok(key), tok(sel)
+        reset = vivid and reset
+        if reset:  # the whole InferenceCore is rebuilt
+            mem.clear_host(state)
+            frame_idx = last_mem_t = 0
         is_mem = ref_flag or frame_idx - last_mem_t >= cfg.mem_every
-        exem = ref_flag and exemplar_insert
+        # the exemplar's own key and value go in first
+        exem_full = ref_flag and exemplar_insert and mem.note_insert(state, cfg)
+        # a match counts (usage) on every step in exemplar mode, else off
+        # reference frames and after the first frame
+        seg_ran = exemplar_insert or (frame_idx > 0 and not ref_flag)
+        frame_full = is_mem and mem.note_insert(state, cfg)
+        if is_mem:
+            last_mem_t = frame_idx
+        return (_StepPlan(reset, ref_flag, is_mem, seg_ran, exem_full, frame_full),
+                (state, hidden, last_key, last_value, frame_idx + 1, last_mem_t))
+
+    def run(carry, x, ref, p):
+        frame_l3, g16, g8, g4, key, shrink, sel, rab = x
+        if p.reset:
+            _cm_clear_device(carry)
+        state, hidden, last_key, last_value = carry[:4]
+        qk, qe = tok(key), tok(sel)
+        exem = p.ref and exemplar_insert
         # deep update on every memory frame except exemplar inserts; the
         # decoder's hidden is kept only off memory frames
-        is_deep = is_mem and not exem
-        normal_upd = not is_mem
+        is_deep = p.is_mem and not exem
+        normal_upd = not p.is_mem
 
         if exem:  # insert the exemplar's own key and value first
             ref_l3, rg16, rkey, rshrink, rsel, ref_rab = ref
             rvalue, _ = net.value_encoder(ref_l3, rg16, torch.zeros_like(hidden), ref_rab,
                                           deep_update=False)
-            state = mem.insert_working(state, cfg, tok(rkey), rshrink.reshape(lead + (P,)),
-                                       tok(rsel), _tokens(rvalue).reshape(lead + (2, P, Cv)),
-                                       True)
-            last_key, last_value, last_mem_t = rkey, rvalue, frame_idx
+            mem.write_working(state, cfg, tok(rkey), rshrink.reshape(lead + (P,)), tok(rsel),
+                              _tokens(rvalue).reshape(lead + (2, P, Cv)), p.exem_full)
+            last_key, last_value = rkey, rvalue
 
-        # a match counts (usage) on every step in exemplar mode, else off
-        # reference frames and after the first frame
-        seg_ran = exemplar_insert or (frame_idx > 0 and not ref_flag)
-        mem_read, state = mem.read_memory(state, cfg, qk, qe, update_usage=seg_ran)
+        mem_read, state = mem.read_memory(state, cfg, qk, qe, update_usage=p.seg_ran)
         readout = mem_read.transpose(-1, -2).reshape(2 * b, Cv, h16, w16)
         if not exem:  # the short-term read is skipped on exemplar inserts
             short = net.short_term_attn(key, last_key, last_value.reshape(b, 2 * Cv, h16, w16))
             readout = readout + short.reshape(2 * b, Cv, h16, w16)
 
         hidden_dec, logits = net.decoder(g16, g8, g4, hidden, readout)
-        if ref_flag and not exemplar_insert:
+        if p.ref and not exemplar_insert:
             ab = rab
         else:
             ab = torch.tanh(logits)[:, 0].reshape((b, 2) + logits.shape[-2:])
-        h1 = hidden_dec if (seg_ran and normal_upd) else hidden
+        h1 = hidden_dec if (p.seg_ran and normal_upd) else hidden
 
         hidden = h1
-        if is_mem:  # encode the current frame with its ab and insert it
+        if p.is_mem:  # encode the current frame with its ab and insert it
             value16, hidden_reinf = net.value_encoder(frame_l3, g16, h1, ab)
             if is_deep:
                 hidden = hidden_reinf
-            state = mem.insert_working(state, cfg, qk, shrink.reshape(lead + (P,)), qe,
-                                       _tokens(value16).reshape(lead + (2, P, Cv)), True)
-            last_key, last_value, last_mem_t = key, value16, frame_idx
-        return ((state, hidden, last_key, last_value, frame_idx + 1, last_mem_t),
-                ab[0] if scenes is None else ab)
+            mem.write_working(state, cfg, qk, shrink.reshape(lead + (P,)), qe,
+                              _tokens(value16).reshape(lead + (2, P, Cv)), p.frame_full)
+            last_key, last_value = key, value16
+        # the new hidden and short-term state into the carry's own storage
+        for own, new in zip(carry[1:4], (hidden, last_key, last_value)):
+            if new is not own:
+                own.copy_(new)
+        return ab[0] if scenes is None else ab
 
-    return step
+    return _CMStep(plan, run)
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    ab: torch.Tensor  # the graph's output
+    launches: tuple  # (counter, launches) its capture counted
+
+
+class _StepGraphs:
+    """One engine's frame step as captured CUDA graphs, one a plan
+    (``_StepPlan``) of each ``vivid``, ``frame_propagate``: at most
+    ``MAX_STEP_PLANS`` each, decided by the flags and counters the step
+    reads, never by a caller's setting.  The graphs run on the engine's own
+    carry and read the frame's inputs from static buffers; they share one
+    memory pool.
+
+    A plan's first step runs eagerly (its output is the step's), then
+    ``run`` is captured over the static buffers on a side stream; a
+    capture queues nothing, waits for nothing (unlike ``torch.cuda.graph``,
+    which synchronizes the device first) and ``run`` keeps no host state,
+    so the carry is left as the eager step left it.  Every later step with
+    that plan copies its inputs into the static buffers on the stream and
+    replays.  The launch counters a capture counted are taken back and
+    added again on each replay, as the eager step counts them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device  # the engine's card, current or not
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device=device)  # captures run on it
+        self.graphs = {}  # (vivid, frame_propagate, plan) -> _Graph
+        self.x = self.ref = None  # the static inputs
+
+    def step(self, step: _CMStep, key, carry, x, ref, p: _StepPlan) -> torch.Tensor:
+        """The step's ``ab``; a graph's own output, valid until its next
+        replay.  Captures and replays run on the engine's card, whichever
+        card is current: a replay launches on the current card's stream."""
+        with torch.cuda.device(self.device):
+            g = self.graphs.get(key)
+            if g is None:
+                if sum(k[:2] == key[:2] for k in self.graphs) >= MAX_STEP_PLANS:
+                    raise RuntimeError(f"ColorMNet step graphs: a plan past the "
+                                       f"{MAX_STEP_PLANS} the step can meet: {key}")
+                ab = step.run(carry, x, ref, p)
+                self._capture(step, key, carry, x, ref, p)
+                return ab
+            torch._foreach_copy_(self.x, x)
+            if ref is not None:
+                torch._foreach_copy_(self.ref, ref)
+            g.graph.replay()
+        for name, n in g.launches:
+            count(name, n)
+        count("cm_graph_replays")
+        return g.ab
+
+    def _capture(self, step: _CMStep, key, carry, x, ref, p: _StepPlan) -> None:
+        if self.x is None:
+            self.x = [torch.empty_like(a) for a in x]
+        if ref is not None and self.ref is None:
+            self.ref = [torch.empty_like(a) for a in ref]
+        before = counters()
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                ab = step.run(carry, tuple(self.x), None if ref is None else tuple(self.ref), p)
+            finally:
+                graph.capture_end()
+        current.wait_stream(self.stream)
+        launches = tuple((k, n - before.get(k, 0)) for k, n in counters().items()
+                         if n != before.get(k, 0))
+        for name, n in launches:  # the capture launched nothing
+            count(name, -n)
+        self.graphs[key] = _Graph(graph, ab, launches)
+        count("cm_graph_captures")
 
 
 def _host_flags(is_ref) -> np.ndarray:
@@ -387,6 +547,13 @@ def colormnet_propagate(
     reference.  ``return_state`` also returns the carry, which
     ``resume_state`` continues from (the state is updated in place).
 
+    Without either, the loop runs on the engine's own carry, emptied in
+    place at the start, and on a CUDA device every step is a replay of the
+    engine's captured graph of its plan (``_StepGraphs``).  The resumed
+    and returned carries of the streaming paths, the scene batch
+    (``colormnet_propagate_scenes``) and the CPU run the same in-place step
+    eagerly.
+
     ``feed_schedule``/``reset_schedule`` are the all-refs mode (encode
     modes 2/3; make them with ``allrefs.allrefs_feed_schedule`` and
     ``allrefs.allrefs_step_schedule``): step ``n`` inserts reference frame
@@ -420,16 +587,30 @@ def colormnet_propagate(
         xs, ref_pre, (lh, lw, fh, fw) = _cm_prepare(engine, frames, _as_tensor(ref_ab, dev),
                                                     ref_frames,
                                                     ref_idx)
-        carry = resume_state if resume_state is not None else _cm_init_carry(engine)
-        outs = []
+        if resume_state is not None:
+            carry = resume_state
+        elif return_state:  # the caller keeps it: its own storage
+            carry = _cm_init_carry(engine)
+        else:
+            carry = _cm_owned_carry(engine)
+        graphs = None
+        if dev.type == "cuda" and resume_state is None and not return_state:
+            if engine.step_graphs is None:
+                engine.step_graphs = _StepGraphs(dev)
+            graphs = engine.step_graphs
+        out = torch.empty((len(is_ref), 2, engine.h, engine.w), dtype=engine.dtype, device=dev)
         with stage_timer("cm_frame_loop"):
             for t in range(len(is_ref)):
+                p, carry = step.plan(carry, bool(is_ref[t]), bool(reset[t]))
+                x = tuple(a[t:t + 1] for a in xs)
                 r = ref_pos.get(t)
                 ref = None if r is None else tuple(a[r:r + 1] for a in ref_pre)
-                carry, ab = step(carry, tuple(a[t:t + 1] for a in xs) + (bool(is_ref[t]),), ref,
-                                 bool(reset[t]))
-                outs.append(ab)
-        ab = torch.stack(outs).permute(0, 2, 3, 1)[:, lh:lh + fh, lw:lw + fw].float()
+                if graphs is None:
+                    ab = step.run(carry, x, ref, p)
+                else:
+                    ab = graphs.step(step, (vivid, frame_propagate, p), carry, x, ref, p)
+                out[t].copy_(ab)
+        ab = out.permute(0, 2, 3, 1)[:, lh:lh + fh, lw:lw + fw].float()
     if return_state:
         return ab, carry
     return ab
@@ -517,14 +698,13 @@ def colormnet_propagate_scenes(
                 step=_build_cm_step(eng, vivid=True, frame_propagate=frame_propagate, scenes=n),
                 xs=[a[:, lo:hi].to(sdev, non_blocking=True) for a in xs],
                 ref=tuple(a[lo:hi].to(sdev, non_blocking=True) for a in ref_pre),
-                carry=None, outs=[]))  # step 0 rebuilds it
+                carry=_cm_init_carry(eng, n), outs=[]))
         with stage_timer("cm_frame_loop"):
             for l in range(L):  # the shards' launches interleave, so their devices overlap
                 for sh in shards:
-                    sh["carry"], ab = sh["step"](sh["carry"], tuple(a[l] for a in sh["xs"])
-                                                 + (l == 0,), sh["ref"] if l == 0 else None,
-                                                 l == 0)
-                    sh["outs"].append(ab)
+                    p, sh["carry"] = sh["step"].plan(sh["carry"], l == 0, l == 0)
+                    sh["outs"].append(sh["step"].run(sh["carry"], tuple(a[l] for a in sh["xs"]),
+                                                     sh["ref"] if l == 0 else None, p))
         # (L, S_pad, H, W, 2) on the engine's device, then one gather of
         # each clip frame's (step, scene) row
         ab = torch.cat([torch.stack(sh["outs"]).to(dev, non_blocking=True) for sh in shards],

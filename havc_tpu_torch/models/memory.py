@@ -15,7 +15,12 @@ What the JAX package decides with ``lax.cond`` on values that depend only
 on the insert schedule (whether an insert runs, whether the working store
 is full) is decided here on the host: ``MemoryState`` keeps a host copy of
 the working slots' validity and stamps beside the device tensors, so the
-frame loop never waits for the card.  What depends on the data (which
+frame loop never waits for the card.  An insert is split along that line:
+``note_insert`` keeps the host copy and says whether the store is full,
+``write_working`` writes the device tensors.  The slot a frame goes to is
+formed on the device from the state's own stamp counter, as the JAX
+package forms it, so a captured CUDA graph of an insert writes the right
+slot on every replay.  What depends on the data (which
 long-term tokens are evicted, whether eviction runs) stays on the device:
 both branches are computed and ``torch.where`` picks.  Every tie among
 equal keys is broken as ``jax.lax.top_k`` breaks it (``stable_top_k``).
@@ -33,7 +38,9 @@ at once: batched products, top-k along the last axis, eviction by
 all S: the scene-batched scan starts every scene with a rebuild and an
 exemplar insert at step 0, so each scene inserts at the same steps.
 
-The functions update the state's tensors in place and return it.
+The functions update the state's tensors in place and return it; no
+device tensor of a state is ever replaced, so its storage can be held by
+a captured graph (``clear_host`` and ``clear_device`` empty it in place).
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ import torch
 
 from .colormnet import get_similarity, stable_top_k, topk_softmax
 
-__all__ = ["MemoryConfig", "MemoryState", "init_memory", "insert_working", "read_memory"]
+__all__ = ["MemoryConfig", "MemoryState", "init_memory", "clear_host", "clear_device",
+           "insert_working", "note_insert", "write_working", "read_memory"]
 
 
 class MemoryConfig(NamedTuple):
@@ -82,6 +90,7 @@ class MemoryState:
     lt_use: torch.Tensor  # (L,)
     lt_life: torch.Tensor  # (L,)
     lt_valid: torch.Tensor  # (L,) bool
+    stamp: torch.Tensor  # () int32 == next_stamp, on the device (one for all scenes)
     # host copies of the schedule-determined fields
     next_stamp: int  # total inserts so far
     host_valid: np.ndarray  # (W,) bool == work_valid
@@ -97,25 +106,50 @@ def init_memory(cfg: MemoryConfig, device=None, dtype=torch.float32,
     assert cfg.max_mt_frames > cfg.min_mt_frames >= 1
     s = () if scenes is None else (int(scenes),)
     kw = dict(device=device, dtype=dtype)
-    return MemoryState(
-        work_keys=torch.zeros(s + (W, P, cfg.key_dim), **kw),
-        work_shrink=torch.ones(s + (W, P), **kw),
-        work_sel=torch.zeros(s + (W, P, cfg.key_dim), **kw),
-        work_values=torch.zeros(s + (O, W, P, cfg.value_dim), **kw),
-        work_use=torch.zeros(s + (W, P), device=device),
-        work_life=torch.full(s + (W, P), 1e-7, device=device),
-        work_valid=torch.zeros(s + (W,), dtype=torch.bool, device=device),
-        work_stamp=torch.zeros(s + (W,), dtype=torch.int32, device=device),
-        lt_keys=torch.zeros(s + (L, cfg.key_dim), **kw),
-        lt_shrink=torch.ones(s + (L,), **kw),
-        lt_values=torch.zeros(s + (O, L, cfg.value_dim), **kw),
-        lt_use=torch.zeros(s + (L,), device=device),
-        lt_life=torch.full(s + (L,), 1e-7, device=device),
-        lt_valid=torch.zeros(s + (L,), dtype=torch.bool, device=device),
+    f32 = dict(device=device, dtype=torch.float32)
+    return clear_device(MemoryState(
+        work_keys=torch.empty(s + (W, P, cfg.key_dim), **kw),
+        work_shrink=torch.empty(s + (W, P), **kw),
+        work_sel=torch.empty(s + (W, P, cfg.key_dim), **kw),
+        work_values=torch.empty(s + (O, W, P, cfg.value_dim), **kw),
+        work_use=torch.empty(s + (W, P), **f32),
+        work_life=torch.empty(s + (W, P), **f32),
+        work_valid=torch.empty(s + (W,), dtype=torch.bool, device=device),
+        work_stamp=torch.empty(s + (W,), dtype=torch.int32, device=device),
+        lt_keys=torch.empty(s + (L, cfg.key_dim), **kw),
+        lt_shrink=torch.empty(s + (L,), **kw),
+        lt_values=torch.empty(s + (O, L, cfg.value_dim), **kw),
+        lt_use=torch.empty(s + (L,), **f32),
+        lt_life=torch.empty(s + (L,), **f32),
+        lt_valid=torch.empty(s + (L,), dtype=torch.bool, device=device),
+        stamp=torch.empty((), dtype=torch.int32, device=device),
         next_stamp=0,
         host_valid=np.zeros(W, bool),
         host_stamp=np.zeros(W, np.int64),
-    )
+    ))
+
+
+def clear_host(state: MemoryState) -> MemoryState:
+    """Empty the host copy in place (no insert yet)."""
+    state.next_stamp = 0
+    state.host_valid[:] = False
+    state.host_stamp[:] = 0
+    return state
+
+
+def clear_device(state: MemoryState) -> MemoryState:
+    """Empty the device tensors in place (``init_memory``'s values): zero
+    keys, selection, values, use counts and stamps, unit shrinkage, life
+    counts 1e-7, no valid slot."""
+    for t in (state.work_keys, state.work_sel, state.work_values, state.work_use,
+              state.work_valid, state.work_stamp, state.lt_keys, state.lt_values, state.lt_use,
+              state.lt_valid, state.stamp):
+        t.zero_()
+    for t in (state.work_shrink, state.lt_shrink):
+        t.fill_(1.0)
+    for t in (state.work_life, state.lt_life):
+        t.fill_(1e-7)
+    return state
 
 
 def _candidates(valid, stamp, cfg: MemoryConfig):
@@ -179,7 +213,7 @@ def _consolidate(s: MemoryState, cfg: MemoryConfig) -> MemoryState:
     lu = torch.where(s.lt_valid, s.lt_use / s.lt_life, torch.inf)
     thr = torch.sort(lu, dim=-1).values.gather(-1, torch.clamp(drop - 1, 0, L - 1))
     due = (lcount >= L - k_p) & (drop > 0)
-    s.lt_valid = torch.where(due, s.lt_valid & (lu > thr), s.lt_valid)
+    s.lt_valid.copy_(torch.where(due, s.lt_valid & (lu > thr), s.lt_valid))
 
     # append the prototypes into the first k_p free long-term slots
     dst = stable_top_k(1.0 - s.lt_valid.float(), k_p)[1]
@@ -193,9 +227,9 @@ def _consolidate(s: MemoryState, cfg: MemoryConfig) -> MemoryState:
         t.scatter_(-1, dst, torch.where(proto_ok, fresh, t.gather(-1, dst)))
     s.lt_valid.scatter_(-1, dst, proto_ok | s.lt_valid.gather(-1, dst))
 
-    # sieve: consolidated frames leave the working store
+    # sieve: consolidated frames leave the working store (the host copy's
+    # are taken out by ``note_insert``)
     s.work_valid &= ~cand_frame
-    s.host_valid &= ~_candidates(s.host_valid, s.host_stamp, cfg)
     return s
 
 
@@ -208,23 +242,47 @@ def insert_working(state: MemoryState, cfg: MemoryConfig, keys: torch.Tensor,
     ``enabled`` is a host bool: False is a no-op."""
     if not enabled:
         return state
+    return write_working(state, cfg, keys, shrink, sel, values, note_insert(state, cfg))
+
+
+def note_insert(state: MemoryState, cfg: MemoryConfig) -> bool:
+    """The host's part of one insert: the host copy takes the new frame's
+    slot and stamp, and, when the store is then full, loses the frames a
+    consolidation moves out.  Returns whether it is full, which
+    ``write_working`` is told."""
     W = cfg.max_mt_frames
     stamp = state.next_stamp
     slot = 0 if stamp == 0 else 1 + (stamp - 1) % (W - 1)
-    state.work_keys.select(-3, slot).copy_(keys)
-    state.work_shrink.select(-2, slot).copy_(shrink)
-    state.work_sel.select(-3, slot).copy_(sel)
-    state.work_values.select(-3, slot).copy_(values)
-    # fill_ in place: item assignment of a Python bool or int to a CUDA
-    # tensor copies it from the host, which waits for the card
-    state.work_use.select(-2, slot).fill_(0.0)
-    state.work_life.select(-2, slot).fill_(1e-7)
-    state.work_valid.select(-1, slot).fill_(True)
-    state.work_stamp.select(-1, slot).fill_(stamp)
     state.host_valid[slot] = True
     state.host_stamp[slot] = stamp
     state.next_stamp = stamp + 1
-    if state.host_valid.sum() >= W:
+    full = bool(state.host_valid.sum() >= W)
+    if full:
+        state.host_valid &= ~_candidates(state.host_valid, state.host_stamp, cfg)
+    return full
+
+
+def write_working(state: MemoryState, cfg: MemoryConfig, keys: torch.Tensor,
+                  shrink: torch.Tensor, sel: torch.Tensor, values: torch.Tensor,
+                  consolidate: bool) -> MemoryState:
+    """The device's part of one insert (the arguments of
+    ``insert_working``): the slot is formed from the state's device stamp,
+    ``0 if stamp == 0 else 1 + (stamp - 1) % (W - 1)``, the frame written
+    there, the stamp counted, then the store consolidated where
+    ``consolidate`` (``note_insert``'s answer) says."""
+    W = cfg.max_mt_frames
+    stamp = state.stamp
+    slot = torch.where(stamp == 0, 0, 1 + (stamp - 1) % (W - 1)).long().reshape(1)
+    state.work_keys.index_copy_(-3, slot, keys.unsqueeze(-3))
+    state.work_shrink.index_copy_(-2, slot, shrink.unsqueeze(-2))
+    state.work_sel.index_copy_(-3, slot, sel.unsqueeze(-3))
+    state.work_values.index_copy_(-3, slot, values.unsqueeze(-3))
+    state.work_use.index_fill_(-2, slot, 0.0)
+    state.work_life.index_fill_(-2, slot, 1e-7)
+    state.work_valid.index_fill_(-1, slot, True)
+    state.work_stamp.index_copy_(-1, slot, stamp.expand(state.work_stamp.shape[:-1] + (1,)))
+    stamp += 1
+    if consolidate:
         _consolidate(state, cfg)
     return state
 

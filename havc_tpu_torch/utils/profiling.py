@@ -19,7 +19,10 @@
   paths that waits for the card: ``host_read``, ``host_upload``),
   ``clips`` (``HAVC_main`` calls), the kernels' launches
   (``post_chain_launches``, ``window_attn_launches``,
-  ``window_attn_launches_bf16``).  ``counters()`` reads them,
+  ``window_attn_launches_bf16``; a replayed CUDA graph adds what its
+  capture counted), ColorMNet's frame steps (``cm_steps``; those run as a
+  replay of a captured CUDA graph, ``cm_graph_replays``; the captures,
+  ``cm_graph_captures``).  ``counters()`` reads them,
   ``reset_counters()`` clears them (``reset_stages()`` does not).
 - ``resolve_device(device)`` — the port's entry points run on ``cuda``
   unless the caller names another device.  Without CUDA the default
