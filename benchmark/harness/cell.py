@@ -216,7 +216,7 @@ def compare(config: dict, pool, outputs: List[tuple], reference) -> Dict[str, fl
     """The worst numbers (``judge``) of ``outputs``, each ``(clip index in
     the pool, frames, scene flags)``, against ``reference`` run on the
     same clips' inputs."""
-    scenes = bool(config["havc_main"].get("EnableDeepEx", False))
+    scenes = "cuts_wrong" in config["limits"]
     rows = []
     for n, got, got_sc in outputs:
         want = reference(as_rgb(pool.clips[n]))

@@ -8,7 +8,8 @@ Numbers, each the worst over the sampled clips:
 * ``rgb_p999_abs``: the 99.9th percentile of that distance (the widest
   gaps of a clip but its last thousandth);
 * ``cuts_wrong``: frames whose scene-change flag differs from the
-  reference's (only where the configuration detects scenes).
+  reference's (only where the configuration's ``limits`` hold it: where
+  its path detects scenes).
 
 The configuration's ``limits`` says which numbers are held and to what;
 a run is correct when every held number is at or under its limit.

@@ -1,6 +1,7 @@
-"""The plain reference (``benchmark/reference/havc_ref``) with the same
-seeded weights, run at IEEE float32; as the control, one precision step
-below what the configuration states; and the FLOPs its engines compute.
+"""The plain reference (``benchmark/reference/havc_ref``, the module the
+configuration names) with the same seeded weights, run at IEEE float32; as
+the control, one precision step below what the configuration states; and
+the FLOPs its engines compute.
 
 The control rounds the two operands of every product inside an engine
 (convolutions, linear layers, matrix products and einsums; the products
@@ -9,7 +10,8 @@ and sums stay in the engine's own type):
 * engines the configuration runs in float32 (on TF32 tensor cores) to
   bfloat16;
 * engines it runs in bfloat16 to float8 e4m3, with one scale per tensor
-  (its largest magnitude to 448), on top of the bf16 network.
+  (its largest magnitude to 448), on top of the network run in bfloat16
+  (the reference module's ``dtypes``).
 """
 from __future__ import annotations
 
@@ -119,31 +121,31 @@ class _FlopHooks(_ModeHooks):
 
 
 class Reference:
-    """``havc_ref.pipeline.havc_main`` on the configuration's engines.
-    ``control`` computes each engine one precision step below the
-    configuration's; ``count_flops`` sums each engine family's FLOPs."""
+    """The configuration's reference module (``"reference"``) with its
+    ``havc_main`` keywords, the same the program gets, on the configuration's
+    engines.  ``control`` computes each engine one precision step below the
+    configuration's; ``count_flops`` sums each engine family's FLOPs.  An
+    engine's ``calls`` says where the rounding and the counting go: on the
+    module (``"whole"``) or on its direct children, the parts the path calls
+    one by one (``"parts"``)."""
 
     def __init__(self, config: dict, device, control: bool = False, count_flops: bool = False):
         self.engines = importlib.import_module(f"{PACKAGE}.engines")
-        self.pipeline = importlib.import_module(f"{PACKAGE}.pipeline")
+        self.module = importlib.import_module(f"{PACKAGE}.{config['reference']}")
+        self.kwargs = dict(config["havc_main"])
         self.device = torch.device(device)
-        self.exemplar = bool(config["havc_main"].get("EnableDeepEx", False))
-        self.engine_config = config["havc_main"].get("engine_config", "full")
-        self.cm_dtype = torch.float32
-        self.counters, self.modules = {}, []
-        for spec in config["engines"]:
-            state = weights.make_state(spec, config["weight_seed"], self.device, PACKAGE)
-            module = weights.build_engine(spec, state, PACKAGE)
-            # ColorMNet's parts are called one by one, the others whole
-            parts = list(module.children()) if spec["family"] == "colormnet" else [module]
-            if control and spec["precision"] == "bf16":
-                self.cm_dtype = torch.bfloat16
-                round_operands(parts, "fp8")
-            elif control:
-                round_operands(parts, "bf16")
+        self.dtypes, self.counters, self.modules = {}, {}, []
+        for e in config["engines"]:
+            state = weights.make_state(e, config["weight_seed"], self.device, PACKAGE)
+            module = weights.build_engine(e, state, PACKAGE)
+            parts = _hooked(module, e["calls"])
+            lower = control and e["precision"] == "bf16"
+            self.dtypes[e["family"]] = torch.bfloat16 if lower else torch.float32
+            if control:
+                round_operands(parts, "fp8" if lower else "bf16")
             if count_flops:
-                self.counters[spec["family"]] = _FlopHooks(parts)
-            self.modules.append((spec["family"], spec["name"], module))
+                self.counters[e["family"]] = _FlopHooks(parts)
+            self.modules.append((e["family"], e["name"], module))
 
     def __call__(self, frames: torch.Tensor):
         clip = importlib.import_module(f"{PACKAGE}.clip").Clip(frames=frames)
@@ -151,9 +153,7 @@ class Reference:
         for family, name, module in self.modules:
             self.engines.registry.install(family, name, self.device, module)
         with ieee_flags():
-            return self.pipeline.havc_main(clip, exemplar=self.exemplar,
-                                           engine_config=self.engine_config,
-                                           cm_dtype=self.cm_dtype)
+            return self.module.havc_main(clip, dtypes=self.dtypes, **self.kwargs)
 
     def flops(self) -> dict:
         return {family: c.flops for family, c in self.counters.items()}
@@ -161,3 +161,13 @@ class Reference:
     def close(self) -> None:
         self.engines.registry.clear()
         self.modules.clear()
+
+
+def _hooked(module: torch.nn.Module, calls: str) -> list:
+    """The modules the hooks go on: ``module`` itself (``"whole"``) or its
+    direct children (``"parts"``)."""
+    if calls == "whole":
+        return [module]
+    if calls == "parts":
+        return list(module.children())
+    raise ValueError(f"an engine's \"calls\" is \"whole\" or \"parts\", not {calls!r}")

@@ -13,14 +13,16 @@ standard deviations) and then scales each tensor by its kind:
 * layer scales and attention gates (``*gamma``) 0.1, so that no block is
   inert; DDColor's queries and level embeddings ``N(0, 1)``, the ViT's
   position embedding and class token ``N(0, 0.02)``, ColorMNet's attention
-  temperature 1.
+  temperature 1;
+* PReLU slopes (``prelu``, Deep-Exemplar's) 0.25, PyTorch's default.
 
-An engine's ``scale`` multiplies named tensors further: a configuration
-uses it on an engine's last layer where random weights would saturate its
-output, or leave it all but gray, and trained ones do neither.  The names and shapes come from the benchmark's reference modules, so the
-benchmark defines the weights; both sides load the same state dict
-strictly, which also checks that the program's modules have the reference's
-parameters.
+A leaf no rule covers raises, naming it.  An engine's ``scale`` multiplies
+named tensors further: a configuration uses it on an engine's last layer
+where random weights would saturate its output, or leave it all but gray,
+and trained ones do neither.  The names and shapes come from the
+benchmark's reference modules, so the benchmark defines the weights; both
+sides load the same state dict strictly, which also checks that the
+program's modules have the reference's parameters.
 """
 from __future__ import annotations
 
@@ -63,7 +65,9 @@ def _rule(key: str, shape: Tuple[int, ...]) -> Tuple[float, float]:
         return 0.02, 1.0
     if leaf in ("bias", "bn_bias"):
         return 0.02, 0.0
-    raise ValueError(f"weights: no rule for {key} {shape}")
+    if leaf == "prelu":
+        return 0.0, 0.25
+    raise ValueError(f"weights: no rule for {key} {shape} (leaf {leaf!r})")
 
 
 def _meta_module(spec: dict, package: str) -> torch.nn.Module:

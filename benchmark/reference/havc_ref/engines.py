@@ -3,7 +3,7 @@
 
 ``registry`` holds one ``nn.Module`` per (family, name, device); the
 benchmark installs each module with its weights (``install``) before a
-path asks for it.  The networks run inside
+path asks for it (``get``).  The networks run inside
 ``utils.precision.engine_precision``, the filters around them at IEEE
 float32.
 """
@@ -38,20 +38,12 @@ class EngineRegistry:
     def clear(self):
         self._cache.clear()
 
-    def _get(self, family: str, name: str, device) -> nn.Module:
+    def get(self, family: str, name: str, device=None) -> nn.Module:
+        """The module installed for (family, name) on ``device``."""
         key = (family, name, resolve_device(device))
         if key not in self._cache:
             raise KeyError(f"no {family} {name!r} engine installed on {key[2]}")
         return self._cache[key]
-
-    def deoldify(self, name: str, device=None) -> nn.Module:
-        return self._get("deoldify", name, device)
-
-    def ddcolor(self, name: str, device=None) -> nn.Module:
-        return self._get("ddcolor", name, device)
-
-    def colormnet(self, config: str, device=None) -> nn.Module:
-        return self._get("colormnet", config, device)
 
 
 registry = EngineRegistry()
@@ -67,8 +59,8 @@ def make_deoldify_fn(model: int = 0, render_factor: int = 24, device=None) -> Ca
 
     names = {0: "video", 1: "stable", 2: "artistic"}
     name = names.get(model, "video")
-    m = registry.deoldify(name, device)
-    mv = None if name == "video" else registry.deoldify("video", device)
+    m = registry.get("deoldify", name, device)
+    mv = None if name == "video" else registry.get("deoldify", "video", device)
     w = DEF_STABLE_WEIGHT if name == "stable" else DEF_ARTISTIC_WEIGHT
 
     def fn(frames):
@@ -108,7 +100,7 @@ def make_ddcolor_fn(
 
     from .models import ddcolor as dd
 
-    m = registry.ddcolor("modelscope" if model == 0 else "artistic", device)
+    m = registry.get("ddcolor", "modelscope" if model == 0 else "artistic", device)
     core = lambda x: dd.colorize(m, x, input_size=input_size)  # noqa: E731
 
     def fn(frames):

@@ -7,20 +7,21 @@ settings take.
   Simple, ColorFix Magenta/Violet, ColorTune Light: work resize, DeOldify
   Video and DDColor Artistic, merge, chroma restore, the stabilizer with the
   post chain, the temporal chroma stabilizer and deflicker.
-* ``havc_main(clip, exemplar=True)``: the same colorizer on the scene
+* ``havc_main(clip, EnableDeepEx=True)``: the same colorizer on the scene
   changes that scene detection finds at ``ScThreshold`` 0.10, ColorMNet
   (vivid: a fresh memory at each reference) propagating them at the
   Medium work size, the fast stabilizer settings, deflicker.
 
-Every network runs in the dtype its module holds and, in float32, at
-whatever precision the caller's flags give (``utils.precision``); the
-benchmark calls it at IEEE float32.
+Every network runs in the dtype that ``dtypes`` gives its family (ColorMNet
+cast to it where its module holds another) and, in float32, at whatever
+precision the caller's flags give (``utils.precision``); the benchmark
+calls it at IEEE float32.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -202,7 +203,7 @@ class ColorMNetEngine:
         else:
             self.mem_cfg = mem.MemoryConfig(key_dim=self.key_dim, value_dim=self.value_dim,
                                             tokens_per_frame=P)
-        net = engines.registry.colormnet(config, self.device)
+        net = engines.registry.get("colormnet", config, self.device)
         self.net = net if dtype == torch.float32 else copy.deepcopy(net).to(dtype)
 
 
@@ -391,12 +392,19 @@ def deepex_colormnet(clip: Clip, clip_ref: Clip, colormap: str, config: str,
 
 
 @torch.inference_mode()
-def havc_main(clip: Clip, exemplar: bool = False, engine_config: str = "full",
-              cm_dtype: Optional[torch.dtype] = None, batch_size: int = 8) -> Clip:
+def havc_main(clip: Clip, *, dtypes: Dict[str, torch.dtype], EnableDeepEx: bool = False,
+              engine_config: str = "full", batch_size: int = 8) -> Clip:
     """``HAVC_main(clip)`` with its defaults, or with ``EnableDeepEx=True``
     (method 0, ColorMNet ``engine_config``, ``ScThreshold`` 0.10): a clip of
-    float32 RGB frames on one device, colorized there.  ``cm_dtype`` is
-    ColorMNet's dtype (float32 when None)."""
+    float32 RGB frames on one device, colorized there.  ``dtypes`` maps each
+    engine family to the dtype it runs in: DeOldify and DDColor float32
+    only, ColorMNet float32 or a lower one.  A keyword of ``HAVC_main`` that
+    this copy does not implement raises ``TypeError``."""
+    unknown = set(dtypes) - {"deoldify", "ddcolor", "colormnet"}
+    wide = {f: d for f, d in dtypes.items() if f != "colormnet" and d != torch.float32}
+    if unknown or wide:
+        raise ValueError(f"havc_main: no engine of {sorted(unknown)} here, and DeOldify and "
+                         f"DDColor run in float32 only, not {wide}")
     speed_id, deoldify_rf, ddcolor_rf = presets.get_render_factors("Medium")
     mweight = presets.get_mweight("Stable")
     do_model, dd_model, dd_method = presets.get_color_model("Video+Artistic")
@@ -409,7 +417,7 @@ def havc_main(clip: Clip, exemplar: bool = False, engine_config: str = "full",
                     ddcolor_p=(dd_model, ddcolor_rf, 1.0, 0.0, True),
                     ddtweak=tuple(dd_tweak), ddtweak_p=(DEF_TWEAK_p, hue_range),
                     batch_size=batch_size)
-    if not exemplar:
+    if not EnableDeepEx:
         colored = colorizer(clip, **colorize)
         return stabilizer(colored, dark=True, dark_p=(0.2, 0.8), colormap=chroma_adjust,
                           smooth=True, smooth_p=(0.3, 0.7, 0.9, 0.0, "none"),
@@ -417,7 +425,7 @@ def havc_main(clip: Clip, exemplar: bool = False, engine_config: str = "full",
                           render_factor=min(deoldify_rf, ddcolor_rf), batch_size=batch_size)
     clip_ref = colorizer(clip, sc_threshold=0.10, **colorize)
     colored = deepex_colormnet(clip, clip_ref, chroma_adjust, engine_config,
-                               cm_dtype or torch.float32, batch_size)
+                               dtypes["colormnet"], batch_size)
     colored = stabilizer(colored, stab=True, stab_p=(3, "A", 1, 0, 0, 0),
                          colormap=chroma_adjust2, render_factor=min(deoldify_rf, ddcolor_rf),
                          batch_size=batch_size)

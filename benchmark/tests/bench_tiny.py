@@ -1,7 +1,13 @@
-"""Test-sized cells of the benchmark's two configurations: the same
-configuration files with small engines (nano DeOldify, micro DDColor and
-ColorMNet), small clips and limits for the CPU, where the program and the
-reference compute alike."""
+"""Test-sized cells of the benchmark, for the CPU, where the program and
+the reference compute alike: each configuration file with the overrides
+of ``benchmark/tests/tiny/<config>.json``, found by name, and small clips
+of its traffic mix.
+
+A tiny file gives its engines' ``name``, ``args`` and ``params`` (in the
+configuration's order, each naming its ``family``), ``havc_main``
+keywords that replace the configuration's, and any other key that
+replaces the configuration's own (``work_size``, ``limits``); ``what``
+says what it is."""
 from __future__ import annotations
 
 import json
@@ -17,16 +23,6 @@ for _p in (BENCH, os.path.join(BENCH, "reference"), ROOT):
 
 from harness import spec  # noqa: E402
 
-TINY_ENGINES = {
-    "deoldify": dict(args={"encoder": "nano", "nf_factor": 1}, params=4346885),
-    "ddcolor": dict(args={"encoder": "micro", "dim": 64, "num_queries": 16, "num_blocks": 3,
-                          "unet_out": [64, 64, 32], "heads": 8, "ffn_dim": 128},
-                    params=1523944),
-    "colormnet": dict(name="micro", args={"config": "micro"}, params=12994122),
-}
-# on the CPU both sides compute in IEEE float32 with the same operations
-TINY_LIMITS = {"rgb_mean_abs": 1e-6, "rgb_p999_abs": 1e-5, "cuts_wrong": 0}
-
 
 def read_json(path: str) -> dict:
     with open(path) as f:
@@ -34,18 +30,20 @@ def read_json(path: str) -> dict:
 
 
 def tiny_config(name: str) -> dict:
-    c = read_json(os.path.join(BENCH, "configs", f"{name}.json"))
-    for e in c["engines"]:
-        e.update(TINY_ENGINES[e["family"]])
-    if "engine_config" in c["havc_main"]:
-        c["havc_main"]["engine_config"] = "micro"
-    c["work_size"] = 96
-    c["limits"] = {k: v for k, v in TINY_LIMITS.items() if k in c["limits"]}
+    here = spec.bench_dir()
+    c = read_json(os.path.join(here, "configs", f"{name}.json"))
+    tiny = read_json(os.path.join(here, "tests", "tiny", f"{name}.json"))
+    if [e["family"] for e in tiny["engines"]] != [e["family"] for e in c["engines"]]:
+        raise ValueError(f"tests/tiny/{name}.json: its engines are not the configuration's")
+    for e, small in zip(c["engines"], tiny["engines"]):
+        e.update(small)
+    c["havc_main"].update(tiny["havc_main"])
+    c.update({k: v for k, v in tiny.items() if k not in ("engines", "havc_main", "what")})
     return c
 
 
 def tiny_mix(name: str) -> dict:
-    m = read_json(os.path.join(BENCH, "traffic", f"{name}.json"))
+    m = read_json(os.path.join(spec.bench_dir(), "traffic", f"{name}.json"))
     m.update(frames=4, height=64, width=96, pool=4, check_among=2, check_clips=2,
              profiled_clips=1)
     if m["shots"]:
@@ -53,8 +51,8 @@ def tiny_mix(name: str) -> dict:
     return m
 
 
-def tiny_cell(workload: str) -> spec.Cell:
-    bench = read_json(os.path.join(ROOT, "BENCHMARK.json"))
+def tiny_cell(workload: str, root: str = ROOT) -> spec.Cell:
+    bench = read_json(os.path.join(root, "BENCHMARK.json"))
     w = {x["name"]: x for x in bench["workloads"]}[workload]
     inside = lambda m: workload in m.get("workloads", [workload])  # noqa: E731
     return spec.Cell(name=workload, chips=1, config=tiny_config(w["config"]),

@@ -3,7 +3,8 @@ passes; the control (the reference one precision step below the
 configuration, in the program's place) and the timed path broken
 underneath fail.  Each drives the rest of a run (``run_cell``) without the
 look for a card.  The card test runs the control and a fault at the
-cells' own size."""
+cells' own size.  The cells are ``BENCHMARK.json``'s, each at the test
+size of its configuration's ``tests/tiny`` file."""
 from __future__ import annotations
 
 import sys
@@ -11,12 +12,14 @@ import sys
 import pytest
 import torch
 
-from bench_tiny import ROOT, tiny_cell
+from bench_tiny import ROOT, read_json, tiny_cell
 from harness import cell
 from harness.program import Program
 from harness.reference import Reference
 
-CELLS = ["main.clips-1080p", "exemplar.film-1080p"]
+CELLS = [w["name"] for w in read_json(f"{ROOT}/BENCHMARK.json")["workloads"]]
+# the cells whose check compares scene changes
+SCENE_CELLS = [w for w in CELLS if "cuts_wrong" in tiny_cell(w).config["limits"]]
 
 
 class Broken:
@@ -63,17 +66,23 @@ def test_sound_program_is_correct(workload):
     out = _run(workload, lambda cfg: lambda: Program(cfg, "cpu"))
     assert out["correct"] is True, out["checks"]
     assert list(out) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
-    family = workload.split(".")[0]
-    assert set(out["metrics"]) == {f"fps.{family}", f"clip_s_p90.{family}", "peak_mem_gib",
-                                   "setup_s"}
+    assert set(out["metrics"]) == {m["name"] for m in tiny_cell(workload).end_to_end}
+    names = set(out["metrics"])
+    assert {"peak_mem_gib", "setup_s"} <= names
+    assert any(n.startswith("fps.") for n in names)
+    assert any(n.startswith("clip_s_p90.") for n in names)
 
 
-def test_traced_run_reports_layers():
-    out = _run("exemplar.film-1080p", lambda cfg: lambda: Program(cfg, "cpu"),
-               trace=True)
-    assert out["correct"] is True
-    assert {"engines_ms_per_frame.exemplar", "stabilizer_ms_per_frame.exemplar",
-            "cm_loop_ms_per_frame"} <= set(out["metrics"])
+@pytest.mark.parametrize("workload", CELLS)
+def test_traced_run_reports_layers(workload):
+    """A traced run reports the cell's per-layer metrics that a CPU run
+    has something for, among them every stage time per frame
+    (``*_ms_per_frame*``: the spans' readers)."""
+    out = _run(workload, lambda cfg: lambda: Program(cfg, "cpu"), trace=True)
+    assert out["correct"] is True, out["checks"]
+    names = {m["name"] for m in tiny_cell(workload).per_layer}
+    assert set(out["metrics"]) <= names
+    assert {n for n in names if "_ms_per_frame" in n} <= set(out["metrics"])
     assert out["device"]["window_s"] > 0 and "breakdown" in out
 
 
@@ -90,9 +99,10 @@ def test_broken_path_is_not_correct(workload, fault):
     assert out["correct"] is False, out["checks"]
 
 
-def test_wrong_cuts_are_not_correct():
-    """A scene change the program misses fails the exemplar cell."""
-    c = tiny_cell("exemplar.film-1080p")
+@pytest.mark.parametrize("workload", SCENE_CELLS)
+def test_wrong_cuts_are_not_correct(workload):
+    """A scene change the program misses fails a cell that detects scenes."""
+    c = tiny_cell(workload)
     c.mix["check_among"] = c.mix["pool"]
     out = cell.run_cell(c, 3, 1.0, False, "cpu", 0.0, program_factory=lambda: Broken(
         Program(c.config, "cpu"), _cuts_dropped))
@@ -109,7 +119,7 @@ def test_jax_loaded_after_the_window_prints_no_result(monkeypatch, capsys):
         return check(*args, **kwargs)
 
     monkeypatch.setattr(cell, "_check", loads_jax)
-    out = _run("main.clips-1080p", lambda cfg: lambda: Program(cfg, "cpu"))
+    out = _run(CELLS[0], lambda cfg: lambda: Program(cfg, "cpu"))
     capsys.readouterr()
     assert cell.print_result(out) != 0
     printed = capsys.readouterr()

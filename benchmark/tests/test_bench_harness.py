@@ -1,6 +1,7 @@
 """CPU tests of the benchmark's harness: traffic, window arithmetic, the
-yardstick's byte and FLOP counts, discovery by name, and what its
-processes import."""
+yardstick's byte and FLOP counts and seeded weights, discovery by name
+(a cell, its reference and its test size as new files only), and what
+its processes import."""
 from __future__ import annotations
 
 import json
@@ -9,13 +10,15 @@ import os
 import statistics
 import subprocess
 import sys
+import zlib
 from statistics import NormalDist
 
 import pytest
 import torch
 
-from bench_tiny import BENCH, ROOT, read_json, tiny_cell, tiny_mix
+from bench_tiny import BENCH, ROOT, read_json, tiny_cell, tiny_config, tiny_mix
 from harness import cell, flops, spec, trace, traffic, weights
+from harness.reference import Reference
 
 FILM = read_json(os.path.join(BENCH, "traffic", "film-1080p.json"))
 
@@ -151,21 +154,41 @@ def test_weights_seeded_and_strict():
 # --- discovery by name --------------------------------------------------------
 
 
-def test_new_config_mix_and_metric_are_files(tmp_path):
-    """A cell added as a new configuration file, a new mix file and a new
-    metric reader, named in BENCHMARK.json, runs without any other edit."""
+_NEW_REFERENCE = '''"""A test configuration's reference: the pipeline's ``havc_main``,
+its calls counted."""
+from . import pipeline
+
+calls = 0
+
+
+def havc_main(clip, *, dtypes, **havc_main):
+    global calls
+    calls += 1
+    return pipeline.havc_main(clip, dtypes=dtypes, **havc_main)
+'''
+
+
+def test_new_config_mix_and_metric_are_files(tmp_path, monkeypatch):
+    """A cell added as new files only, named in BENCHMARK.json: a
+    configuration that names a new reference module, that module, the
+    configuration's test size, a mix and a metric reader.  It runs without
+    any other edit; the sound program reads ``correct`` true, the control
+    in its place false."""
     bench = read_json(os.path.join(ROOT, "BENCHMARK.json"))
-    cfg = tiny_cell("main.clips-1080p").config
-    cfg["name"] = "main-test-tiny"
-    mix = tiny_mix("clips-1080p")
-    mix["name"] = "tiny-clips"
+    cfg = read_json(os.path.join(BENCH, "configs", "main-video-artistic.json"))
+    cfg.update(name="main-test-tiny", reference="new_reference")
+    tiny = read_json(os.path.join(BENCH, "tests", "tiny", "main-video-artistic.json"))
+    mix = dict(read_json(os.path.join(BENCH, "traffic", "clips-1080p.json")), name="tiny-clips")
     root = tmp_path / "checkout"
-    for d in ("benchmark/configs", "benchmark/traffic", "benchmark/metrics"):
-        (root / d).mkdir(parents=True)
-    (root / "benchmark/configs/main-test-tiny.json").write_text(json.dumps(cfg))
-    (root / "benchmark/traffic/tiny-clips.json").write_text(json.dumps(mix))
-    (root / "benchmark/metrics/clips_in_window.py").write_text(
-        "def read(ctx):\n    return float(ctx.profiled['clips'] + ctx.timed['clips'])\n")
+    files = {"benchmark/configs/main-test-tiny.json": json.dumps(cfg),
+             "benchmark/reference/havc_ref/new_reference.py": _NEW_REFERENCE,
+             "benchmark/tests/tiny/main-test-tiny.json": json.dumps(tiny),
+             "benchmark/traffic/tiny-clips.json": json.dumps(mix),
+             "benchmark/metrics/clips_in_window.py":
+                 "def read(ctx):\n    return float(ctx.profiled['clips'] + ctx.timed['clips'])\n"}
+    for path, text in files.items():
+        (root / path).parent.mkdir(parents=True, exist_ok=True)
+        (root / path).write_text(text)
     bench["workloads"].append(dict(name="test.tiny", config="main-test-tiny",
                                    traffic="tiny-clips", chips=1, why="a test"))
     bench["per_layer"].append(dict(name="clips_in_window", unit="clips", better="higher",
@@ -173,17 +196,80 @@ def test_new_config_mix_and_metric_are_files(tmp_path):
                                    workloads=["test.tiny"]))
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
 
-    orig = spec.bench_dir
-    spec.bench_dir = lambda: str(root / "benchmark")
+    import havc_ref
+
+    monkeypatch.setattr(spec, "bench_dir", lambda: str(root / "benchmark"))
+    monkeypatch.setattr(havc_ref, "__path__",
+                        [*havc_ref.__path__, str(root / "benchmark" / "reference" / "havc_ref")])
     try:
         c = spec.load_cell("test.tiny", str(root))
-        assert c.config["name"] == "main-test-tiny" and c.mix["name"] == "tiny-clips"
+        assert c.config["reference"] == "new_reference" and c.mix["name"] == "tiny-clips"
         assert [m["name"] for m in c.per_layer] == ["clips_in_window"]
+        c = tiny_cell("test.tiny", str(root))
+        assert [e["params"] for e in c.config["engines"]] == [e["params"] for e in tiny["engines"]]
         out = cell.run_cell(c, 4, 1.0, True, "cpu", 0.0)
+        assert out["correct"] is True, out["checks"]
+        assert out["metrics"]["clips_in_window"]["value"] >= 2
+        assert sys.modules["havc_ref.new_reference"].calls == 2  # the two sampled clips
+        control = cell.run_cell(c, 4, 1.0, False, "cpu", 0.0, program_factory=lambda: Reference(
+            c.config, "cpu", control=True))
+        assert control["correct"] is False, control["checks"]
     finally:
-        spec.bench_dir = orig
-    assert out["metrics"]["clips_in_window"]["value"] >= 2
-    assert out["correct"] is True
+        sys.modules.pop("havc_ref.new_reference", None)
+
+
+def test_reference_rejects_what_it_does_not_run():
+    """The pipeline raises on a ``HAVC_main`` keyword it does not implement,
+    and on a dtype for an engine it does not run or cannot run in."""
+    from havc_ref import pipeline
+    from havc_ref.clip import Clip
+
+    clip = Clip(frames=torch.zeros(2, 8, 8, 3))
+    with pytest.raises(TypeError):
+        pipeline.havc_main(clip, dtypes={}, Preset="Fast")
+    for dtypes in ({"deoldify": torch.bfloat16}, {"deepex": torch.float32}):
+        with pytest.raises(ValueError):
+            pipeline.havc_main(clip, dtypes=dtypes)
+
+
+def test_hooks_go_where_calls_says():
+    from harness.reference import _hooked
+
+    net = torch.nn.Sequential(torch.nn.Linear(2, 3), torch.nn.Linear(3, 1))
+    assert _hooked(net, "whole") == [net] and _hooked(net, "parts") == list(net)
+    with pytest.raises(ValueError):
+        _hooked(net, "children")
+
+
+def test_deepex_prelu_slopes_have_a_rule():
+    """The port's Deep-Exemplar at its published widths: its 11 PReLU
+    slopes take their own leaf rule, PyTorch's 0.25."""
+    dx = dict(family="deepex", name="full", module="deepex", args={}, params=55_024_269,
+              **{"class": "DeepEx"})
+    state = weights.make_state(dx, 1406, "cpu", "havc_tpu_torch")
+    assert weights.param_count(weights.build_engine(dx, state, "havc_tpu_torch")) == 55_024_269
+    slopes = [v for k, v in state.items() if k.rsplit(".", 1)[-1] == "prelu"]
+    assert len(slopes) == 11 and all(torch.equal(v, torch.full((1,), 0.25)) for v in slopes)
+
+
+def test_leaf_without_a_rule_raises_naming_it():
+    with pytest.raises(ValueError, match="'alpha'"):
+        weights._rule("block.act.alpha", (1,))
+
+
+@pytest.mark.parametrize("config", ["main-video-artistic", "exemplar-colormnet"])
+def test_tiny_states_are_pinned(config):
+    """Both configurations' engines at test size draw, key by key, the
+    weights pinned in ``tiny_states.json``."""
+    pinned = read_json(os.path.join(BENCH, "tests", "tiny_states.json"))
+    c = tiny_config(config)
+    assert c["weight_seed"] == pinned["weight_seed"]
+    for e in c["engines"]:
+        want = pinned["engines"][f"{e['family']}.{e['name']}"]
+        state = weights.make_state(e, c["weight_seed"], "cpu", "havc_ref")
+        got = {k: f"{zlib.crc32(v.contiguous().numpy().tobytes()):08x}" for k, v in state.items()}
+        assert sorted(got) == sorted(want)
+        assert [k for k in want if got[k] != want[k]] == []
 
 
 def test_split_metric_reads_its_quantity():
