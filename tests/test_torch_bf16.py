@@ -55,10 +55,10 @@ from havc_tpu_torch.models import colormnet as tcm
 from havc_tpu_torch.models import memory as tmem
 from havc_tpu_torch.ops import window_attn as wa
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar import _GROUPS, MEM_CFG, _mem_frames
 from test_torch_exemplar_surface import seeded_colormnet  # noqa: F401  (fixture)
 from test_torch_remaster import remaster_net, remaster_tree
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 WINDOW_TOL = 1e-5
 UNFOLD_BF16_GAP = 1e-3

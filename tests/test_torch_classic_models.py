@@ -30,7 +30,8 @@ from havc_tpu_torch.models import deoldify as tdo
 from havc_tpu_torch.models import zhang as tzh
 from havc_tpu_torch.models.bridge import flatten_tree, state_dict_from_flax, torch_key, torch_shape
 
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 
 REL_TOL = 1e-4
 ZHANG_WIDTH = 8

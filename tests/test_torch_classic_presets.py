@@ -40,8 +40,8 @@ from havc_tpu_torch.models import ddcolor as tdd
 from havc_tpu_torch.models import deoldify as tdo
 from havc_tpu_torch.models.bridge import state_dict_from_flax
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_classic_models import carry_deep, carry_zhang, narrow_jax_zhang, perturb
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 BIN_SHARE, BIN_MAX = 0.02, 0.02

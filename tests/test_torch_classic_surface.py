@@ -29,6 +29,7 @@ from havc_tpu_torch import api as tapi
 from havc_tpu_torch.ops import chroma as tchroma
 from havc_tpu_torch.ops import merge as tmerge
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_deepex_surface import deepex_engines  # noqa: F401  (fixture)
 from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
     colored_clip, colormnet_both, exemplar_both, gray_clip, seeded_colormnet)
@@ -250,14 +251,9 @@ def test_unported_restore_options_raise(deepex_engines):
     gray, colored = gray_clip(), colored_clip()
     want = havc_tpu.api.HAVC_main_restore(JClip(frames=gray.copy()),
                                           JClip(frames=colored.copy()), DeepExModel=1)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))  # as tests/test_torch_streaming.py's workers do
-    try:
-        got = tapi.HAVC_main_restore(havc_tpu_torch.Clip(frames=gray.copy()),
-                                     havc_tpu_torch.Clip(frames=colored.copy()), DeepExModel=1,
-                                     device="cpu")
-    finally:
-        torch.set_num_threads(threads)
+    got = tapi.HAVC_main_restore(havc_tpu_torch.Clip(frames=gray.copy()),
+                                 havc_tpu_torch.Clip(frames=colored.copy()), DeepExModel=1,
+                                 device="cpu")
     d = np.abs(got.frames - np.asarray(want.frames))
     assert got.frames.shape == gray.shape
     assert np.mean(d > 1e-4) <= 0.02 and d.max() <= 0.02, (np.mean(d > 1e-4), d.max())
@@ -440,3 +436,30 @@ def test_engine_constructor_signatures(cls):
 
     assert _signature(init("havc_tpu_torch"), {"device"}) == \
         _signature(init("havc_tpu"), {"seed"}), cls
+
+
+def test_thread_rule_lives_in_one_module():
+    """tests/_torch_threads.py sets torch's thread count, at its import,
+    and every port test file imports it at module level; no other file
+    under tests/ sets the count, or defines or imports
+    ``_few_torch_threads``."""
+    tests_dir = os.path.join(REPO, "tests")
+    found = []
+    for f in sorted(os.listdir(tests_dir)):
+        if not f.endswith(".py") or f == "_torch_threads.py":
+            continue
+        tree = ast.parse(open(os.path.join(tests_dir, f)).read())
+        if f.startswith("test_torch_") and not any(
+                isinstance(node, ast.Import) and any(a.name == "_torch_threads" for a in node.names)
+                for node in tree.body):
+            found.append(f"{f} does not import _torch_threads")
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                    and node.func.attr == "set_num_threads":
+                found.append(f"{f}:{node.lineno} calls set_num_threads")
+            elif isinstance(node, ast.FunctionDef) and node.name == "_few_torch_threads":
+                found.append(f"{f}:{node.lineno} defines {node.name}")
+            elif isinstance(node, ast.ImportFrom) \
+                    and any(a.name == "_few_torch_threads" for a in node.names):
+                found.append(f"{f}:{node.lineno} imports _few_torch_threads")
+    assert not found, found

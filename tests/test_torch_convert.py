@@ -48,9 +48,9 @@ from havc_tpu_torch.models import ddcolor as tdd
 from havc_tpu_torch.models import zhang as tzh
 from havc_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_classic_models import ZHANG_WIDTH, narrow_jax_zhang
 from test_torch_exemplar_surface import seeded_params
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4

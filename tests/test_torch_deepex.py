@@ -49,9 +49,9 @@ from havc_tpu_torch.models import deepex as tdx
 from havc_tpu_torch.models.bridge import state_dict_from_flax
 from havc_tpu_torch.ops import fgs as tfgs
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_fgs import _numpy_fgs
 from test_torch_exemplar_surface import seeded_params
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 H, W = 40, 64
 CPU = torch.device("cpu")

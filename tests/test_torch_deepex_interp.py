@@ -28,11 +28,11 @@ import havc_tpu
 
 import havc_tpu_torch
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_deepex_surface import deepex_engines  # noqa: F401  (fixture)
 from test_torch_exemplar_main import _close
 from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
     colormnet_both, exemplar_both, gray_clip, pair, seeded_colormnet)
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 
 @pytest.mark.parametrize("kw", [

@@ -31,12 +31,12 @@ import havc_tpu_torch
 import havc_tpu_torch.engines as tengines
 from havc_tpu_torch import exemplar as tex
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_deepex import JaxDeepEx, deepex_net, deepex_trees
 from test_torch_exemplar_main import _close
 from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
     WORK, colored_clip, colormnet_both, exemplar_both, gray_clip, pair, seeded_colormnet)
 from test_torch_remaster import JaxRemaster, remaster_net, remaster_tree
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 CPU = torch.device("cpu")
 RM_WORK = (32, 48)  # DeepRemaster's work size in these tests (both sides /16)

@@ -18,6 +18,8 @@ from havc_tpu.ops import merge as jmerge
 from havc_tpu_torch.ops import equalize as teq
 from havc_tpu_torch.ops import merge as tmerge
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 TOL = 1e-5
 
 

@@ -56,6 +56,8 @@ from havc_tpu_torch.models.bridge import state_dict_from_flax
 from havc_tpu_torch.ops import resize as tresize
 from havc_tpu_torch.scene import detect as tdetect
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 TOL = 1e-4
 CPU = torch.device("cpu")
 _MUL = ("scale", "var", "bn_scale", "bn_var", "temperature", "ls1_gamma", "ls2_gamma")
@@ -92,8 +94,20 @@ JM = dict(key_encoder=jcm.KeyEncoder(resnet="nano", vit="nano"),
           short_term_attn=jcm.LocalAttention(d_qk=8, d_vu=32, use_pallas=False))
 
 
+def _jit_apply(group):
+    """``JM[group].apply`` jitted, built once per group: each input shape
+    compiles once instead of dispatching op by op."""
+    def apply(params, *args, **kw):
+        return JM[group].apply({"params": params}, *args, **kw)
+
+    return jax.jit(apply, static_argnames=("deep_update",))
+
+
+_JIT_APPLY = {group: _jit_apply(group) for group, _ in _GROUPS}
+
+
 def _apply(group, tree, *args, **kw):
-    return JM[group].apply({"params": tree[group]}, *args, **kw)
+    return _JIT_APPLY[group](tree[group], *args, **kw)
 
 
 class _TreeEngine(jex.ColorMNetEngine):
@@ -117,7 +131,7 @@ def cm_tree():
     rng = jax.random.PRNGKey(0)
     x = jnp.zeros((1, 32, 32, 3))
     p = {"key_encoder": jax.jit(JM["key_encoder"].init)(rng, x)}
-    g16, g8, g4 = jax.jit(JM["key_encoder"].apply)(p["key_encoder"], x)
+    g16, g8, g4 = _JIT_APPLY["key_encoder"](p["key_encoder"]["params"], x)
     hidden = jnp.zeros((2,) + g16.shape[1:3] + (8,))
     p["key_proj"] = jax.jit(JM["key_proj"].init)(rng, g16)
     p["value_encoder"] = jax.jit(JM["value_encoder"].init)(rng, x, g16, hidden,

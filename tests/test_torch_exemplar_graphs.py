@@ -27,6 +27,8 @@ from havc_tpu_torch.exemplar import allrefs
 from havc_tpu_torch.models import memory as tmem
 from havc_tpu_torch.utils import profiling
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():

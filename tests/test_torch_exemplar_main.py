@@ -25,9 +25,9 @@ from havc_tpu.clip import Clip as JClip
 
 import havc_tpu_torch
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
     colormnet_both, exemplar_both, gray_clip, pair, seeded_colormnet)
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 BIN_SHARE, BIN_MAX = 0.02, 0.02

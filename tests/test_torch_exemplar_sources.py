@@ -37,10 +37,10 @@ from havc_tpu_torch.exemplar import allrefs as tallrefs
 from havc_tpu_torch.io import write_image
 from havc_tpu_torch.ops import equalize as teq
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
     WORK, T, _SeededEngine, check, colored_clip, colormnet_both, gray_clip, pair,
     seeded_colormnet)
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 

@@ -48,8 +48,8 @@ from havc_tpu_torch.models import ddcolor as tdd
 from havc_tpu_torch.models import deoldify as tdo
 from havc_tpu_torch.models.bridge import state_dict_from_flax
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar import _GROUPS, JM, _scene_clip
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 CPU = torch.device("cpu")

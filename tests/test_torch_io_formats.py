@@ -32,6 +32,8 @@ from havc_tpu_torch.io import formats as tformats
 from havc_tpu_torch.io import native as tnative
 from havc_tpu_torch.io import video as tvideo
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 CODE_TOL = 1e-4
 MEAN_TOL = 0.01
 OP_TOL = 1e-5

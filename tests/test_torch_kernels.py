@@ -6,6 +6,8 @@ import pytest
 
 from havc_tpu_torch import kernels
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 
 @pytest.mark.parametrize("name,own,absent", [
     ("post_chain", ("-fmad=false",), ()),

@@ -55,9 +55,9 @@ from havc_tpu_torch.ops import overlay as tov
 from havc_tpu_torch.ops import resize as trs
 from havc_tpu_torch.utils import log as tlog
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
     colored_clip, colormnet_both, exemplar_both, gray_clip, seeded_colormnet)
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 OP_TOL = 1e-5
 TOL = 1e-4

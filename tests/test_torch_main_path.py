@@ -34,6 +34,8 @@ from havc_tpu_torch.models import ddcolor as tdd
 from havc_tpu_torch.models import deoldify as tdo
 from havc_tpu_torch.models.bridge import state_dict_from_flax
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -213,19 +215,11 @@ def test_unported_branches_raise(engines_pair, monkeypatch):
                         lambda model=1, render_factor=24, **kw: t_dd(model, 4, **kw))
     monkeypatch.setattr(tex, "smart_resize_shape", lambda width, height, speed="medium": (40, 64))
     frames = _gray_clip()
-    # two intra-op threads: under parallel test workers a full pool waits
-    # on its slowest thread at each of Deep-Exemplar's many small ops
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))
-    try:
-        for kw in (dict(EnableDeepEx=True, DeepExModel=1), dict(FrameInterp=1),
-                   dict(FrameInterp=4)):
-            out = havc_tpu_torch.HAVC_main(havc_tpu_torch.Clip(frames=frames.copy()),
-                                           batch_size=4, device="cpu", **kw)
-            assert isinstance(out.frames, np.ndarray) and out.frames.shape == frames.shape, kw
-            assert np.isfinite(out.frames).all() and 0 <= out.frames.min() <= out.frames.max() <= 1
-    finally:
-        torch.set_num_threads(threads)
+    for kw in (dict(EnableDeepEx=True, DeepExModel=1), dict(FrameInterp=1), dict(FrameInterp=4)):
+        out = havc_tpu_torch.HAVC_main(havc_tpu_torch.Clip(frames=frames.copy()),
+                                       batch_size=4, device="cpu", **kw)
+        assert isinstance(out.frames, np.ndarray) and out.frames.shape == frames.shape, kw
+        assert np.isfinite(out.frames).all() and 0 <= out.frames.min() <= out.frames.max() <= 1
 
 
 def test_port_imports_neither_jax_nor_havc_tpu():

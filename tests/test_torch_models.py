@@ -28,6 +28,8 @@ from havc_tpu_torch.models.bridge import (
     flatten_tree, state_dict_from_flax, torch_key, torch_shape,
 )
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 REL_TOL = 1e-4
 
 

@@ -26,6 +26,8 @@ from havc_tpu_torch.ops import merge as tmerge
 from havc_tpu_torch.ops import resize as tresize
 from havc_tpu_torch.ops import temporal as ttemporal
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 TOL = 1e-5
 
 

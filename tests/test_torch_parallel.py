@@ -43,6 +43,7 @@ from havc_tpu_torch import exemplar as tex
 from havc_tpu_torch import parallel as tpar
 from havc_tpu_torch.models.bridge import state_dict_from_flax
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_deepex import JaxDeepEx, PortDeepEx, deepex_net, deepex_trees, scene_inputs
 from test_torch_exemplar_surface import (  # noqa: F401  (seeded_colormnet: a fixture)
     _SeededEngine,
@@ -50,7 +51,6 @@ from test_torch_exemplar_surface import (  # noqa: F401  (seeded_colormnet: a fi
     seeded_params,
 )
 from test_torch_remaster import JaxRemaster, remaster_net, remaster_tree
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 PIX = 1e-5

@@ -17,6 +17,8 @@ import torch
 from havc_tpu_torch.ops import post_chain as pc
 from havc_tpu_torch.utils.profiling import counters
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 
 def _launches(name: str) -> int:
     """The kernel launch counter ``name`` of the port's registry."""

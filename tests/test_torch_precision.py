@@ -37,6 +37,8 @@ from havc_tpu_torch.ops import merge, resize, window_attn
 from havc_tpu_torch.scene import edges
 from havc_tpu_torch.utils import precision
 from havc_tpu_torch.models.bridge import state_dict_from_flax
+
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar_surface import seeded_params
 from test_torch_main_path import TOL, _gray_clip
 

@@ -36,8 +36,8 @@ from havc_tpu_torch import exemplar as tex
 from havc_tpu_torch.models import remaster as trm
 from havc_tpu_torch.models.bridge import state_dict_from_flax
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar_surface import colored_clip, gray_clip, seeded_params
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 CPU = torch.device("cpu")
 TOL = 1e-4

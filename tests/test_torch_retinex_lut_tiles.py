@@ -22,6 +22,8 @@ from havc_tpu_torch.ops import lut3d as tlut
 from havc_tpu_torch.ops import retinex as tret
 from havc_tpu_torch.ops import tiles as ttiles
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 TOL = 1e-5
 RETINEX_TOL = 1e-4
 

@@ -34,6 +34,8 @@ from havc_tpu_torch.scene import detect as tdetect
 from havc_tpu_torch.scene import edges as tedges
 from havc_tpu_torch.scene import motion as tmotion
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 STAT_TOL = 1e-4
 OP_TOL = 1e-5
 CUTS = (0, 4, 8)

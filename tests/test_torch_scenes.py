@@ -36,13 +36,13 @@ from havc_tpu.utils import jitcache
 from havc_tpu_torch import exemplar as tex
 from havc_tpu_torch.parallel import make_mesh
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_exemplar import _scene_clip
 from test_torch_exemplar_surface import (  # noqa: F401  (fixtures)
     _SeededEngine,
     colormnet_both,
     seeded_colormnet,
 )
-from test_torch_streaming import _few_torch_threads  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 SEQ = dict(atol=2e-5, rtol=1e-4)  # batched against sequential, as the JAX test holds it

@@ -42,23 +42,14 @@ from havc_tpu_torch import streaming as tstream
 from havc_tpu_torch.io import y4m as ty4m
 from havc_tpu_torch.utils import transfer as ttransfer
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 T, H, W = 40, 48, 64
 
 
 # --- shared set-up -------------------------------------------------------------------
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Two intra-op threads: with every core busy (parallel test workers),
-    a full-width thread pool waits on its slowest thread at each op and
-    the module runs tens of times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

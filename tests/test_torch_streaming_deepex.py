@@ -38,11 +38,12 @@ from havc_tpu_torch import streaming as tstream
 from havc_tpu_torch.io.stream import FrameReader
 from havc_tpu_torch.utils.transfer import rgb_unit_to_uv420_u8
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_deepex import JaxDeepEx, deepex_net, deepex_trees
 from test_torch_exemplar_surface import seeded_colormnet  # noqa: F401  (fixture)
 from test_torch_remaster import JaxRemaster, remaster_net, remaster_tree
 from test_torch_streaming_restore import (  # noqa: F401  (fixtures)
-    _GROUPS, _few_torch_threads, _joined, _record, scene_pair)
+    _GROUPS, _joined, _record, scene_pair)
 
 CPU = torch.device("cpu")
 T = 12

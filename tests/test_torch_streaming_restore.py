@@ -21,22 +21,14 @@ import havc_tpu_torch.engines as tengines
 from havc_tpu_torch import exemplar as tex
 from havc_tpu_torch import streaming as tstream
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 T, H, W = 12, 64, 64
 CPU = torch.device("cpu")
 _MUL = ("scale", "var", "bn_scale", "bn_var", "temperature", "ls1_gamma", "ls2_gamma")
 _ADD = ("bias", "mean", "bn_bias", "bn_mean", "cls_token")
 _GROUPS = (("key_encoder", "p_key"), ("key_proj", "p_proj"), ("value_encoder", "p_value"),
            ("decoder", "p_dec"), ("short_term_attn", "p_attn"))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Two intra-op threads: with every core busy (parallel test workers),
-    a full-width thread pool waits on its slowest thread at each op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _perturb(tree, seed):

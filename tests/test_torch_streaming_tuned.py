@@ -16,8 +16,9 @@ import pytest
 import havc_tpu_torch
 from havc_tpu_torch import streaming as tstream
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
 from test_torch_streaming import (  # noqa: F401  (fixtures)
-    J, _codes_close, _few_torch_threads, _joined, _record_retire, cv2, engines_pair, gray_mp4,
+    J, _codes_close, _joined, _record_retire, cv2, engines_pair, gray_mp4,
     small_engines,
 )
 

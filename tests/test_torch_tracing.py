@@ -28,6 +28,8 @@ from havc_tpu_torch.models import ddcolor as tdd
 from havc_tpu_torch.models import deoldify as tdo
 from havc_tpu_torch.utils import profiling
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 # the benchmark's two configurations (benchmark/configs/*.json), the
 # exemplar's engine cut to the micro ColorMNet
 CONFIGS = {"main": {}, "exemplar": {"EnableDeepEx": True, "engine_config": "micro"}}
@@ -35,15 +37,6 @@ CONFIGS = {"main": {}, "exemplar": {"EnableDeepEx": True, "engine_config": "micr
 TOP_STAGES = {"main": {"deoldify", "ddcolor", "merge", "chroma_restore", "post_chain"},
               "exemplar": {"deoldify", "ddcolor", "scene_detect", "sc_gather", "sc_scatter",
                            "cm_key_encoder", "cm_frame_loop", "cm_restore"}}
-
-
-@pytest.fixture(autouse=True)
-def _few_torch_threads():
-    """Two intra-op threads: the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from havc_tpu_torch.ops import window_attn as wa
 from havc_tpu_torch.utils.profiling import counters
 
+import _torch_threads  # noqa: F401  (sets torch's thread count for this process)
+
 
 def _launches(name: str) -> int:
     """The kernel launch counter ``name`` of the port's registry."""
