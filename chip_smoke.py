@@ -33,7 +33,10 @@ JSON line; any failure exits non-zero:
    B = 6, render speed "slower"'s 28 x 42 grid, the scalar paths), each
    against the plain version on the same values, with
    ``scaled_dot_product_attention`` on them; the bf16 rows bound by the
-   bf16 tensor-core rate, the float32 rows by the float32 one.
+   bf16 tensor-core rate, the float32 rows by the float32 one.  The U-Net
+   join (``csrc/unet_join.cu``) through ``unet_join`` at four decoder sites
+   of a 384² frame at batch 8 (DDColor's first one channels-last), bit for
+   bit and one launch each against its plain chain, beside the bytes bound.
    The ``build`` line before it gives each
    kernel function's registers, stack, spills and static shared memory
    (``-Xptxas -v``), its SASS instruction count (``cuobjdump``) and the bf16
@@ -616,6 +619,78 @@ def phase_window_attn(wa, card: str) -> list:
                                   ("window_attn_bf16", "window_attn_tc", b16))]
 
 
+# U-Net joins of a 384² frame at batch 8, as tests/test_torch_unet_join.py's
+# SITES: the two that write 256 x 384² values, a DeOldify decoder block
+# (BN on both ranges) and DDColor's first block, whose conv_out and skip
+# are channels-last as the model hands them over: (conv_out channels, H,
+# scale, BN, second channels, second BN, channels-last)
+UNET_JOIN_SITES = {"deoldify_final_shuf": (1024, 192, 2, False, 3, False, False),
+                   "ddcolor_last_shuf": (4096, 96, 4, False, None, False, False),
+                   "deoldify_up3": (1024, 96, 2, True, 64, True, False),
+                   "ddcolor_layer0": (2048, 12, 2, True, 768, True, True)}
+
+
+def phase_unet_join(uj, card: str) -> dict:
+    """``unet_join`` (the kernel, after the copy of a channels-last input
+    to a contiguous one) against its plain chain at the sites above:
+    bit-identical, one launch, its time, the plain chain's, and the bytes
+    bound (the conv output and the second range read once, the joined
+    tensor written once)."""
+    from havc_tpu_torch.utils.profiling import counters, reset_counters
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = []
+    for name, (cr, h, scale, use_bn, s, skip_bn, nhwc) in UNET_JOIN_SITES.items():
+        fmt = torch.channels_last if nhwc else torch.contiguous_format
+        conv = torch.randn((8, cr, h, h), generator=gen, device="cuda").contiguous(
+            memory_format=fmt)
+        bn = (torch.rand(cr, generator=gen, device="cuda") + 0.5,
+              torch.randn(cr, generator=gen, device="cuda")) if use_bn else None
+        skip = None if s is None else torch.randn(
+            (8, s, scale * h, scale * h), generator=gen, device="cuda").contiguous(
+                memory_format=fmt)
+        sbn = (torch.rand(s, generator=gen, device="cuda") + 0.5,
+               torch.randn(s, generator=gen, device="cuda")) if skip_bn else None
+
+        def kernel():
+            return uj.unet_join(conv, scale, bn, skip=skip, skip_bn=sbn)
+
+        def plain():
+            return uj.unet_join_reference(conv, scale, bn, skip=skip, skip_bn=sbn)
+
+        reset_counters("unet_join_launches")
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        launches = counters().get("unet_join_launches", 0)
+        same = bool(torch.equal(got.contiguous().view(torch.int32),
+                                want.contiguous().view(torch.int32))) and launches == 1
+        n_bytes = 4 * (conv.numel() + (0 if skip is None else skip.numel()) + got.numel())
+        del got, want
+        row = dict(case=name, conv_out=list(conv.shape), scale=scale, channels_last=nhwc,
+                   second=None if skip is None else list(skip.shape), bit_identical=same,
+                   kernel_ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), bytes=n_bytes,
+                   bound_ms=n_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+        row["bound_pct"] = 100.0 * row["bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        if not same:
+            emit(dict(phase="kernels", name="unet_join", cases=rows))
+            fail(f"unet_join {name}: {launches} launches, or the kernel's bits differ from "
+                 "the plain chain's")
+        del conv, skip
+    emit(dict(phase="kernels", name="unet_join", card=card, cases=rows,
+              note="library_ms null: no single PyTorch call computes this chain; plain_ms is "
+                   "the chain the models ran (BN, ReLU, pixel shuffle, replicate pad, "
+                   "avg_pool2d, cat); bytes: conv output and second range read once, the "
+                   "joined tensor written once; kernel_ms of a channels-last site includes "
+                   "the copies to contiguous inputs"))
+    main = rows[0]
+    return dict(name="unet_join", route="cuda", source="havc_tpu_torch/csrc/unet_join.cu",
+                replaces=None, launches=None, max_abs_err=0.0, ms=main["kernel_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
+                library_ms=None)
+
+
 # --- phase 3: the main path at full width -------------------------------------------
 
 
@@ -811,7 +886,8 @@ def phase_bw_tune_memory(ht, card: str) -> None:
             fail(f"bw_tune_memory: method {r['bw_method']} left the frames unchanged")
 
 
-LAUNCH_COUNTERS = ("post_chain_launches", "window_attn_launches", "window_attn_launches_bf16")
+LAUNCH_COUNTERS = ("post_chain_launches", "window_attn_launches", "window_attn_launches_bf16",
+                   "unet_join_launches")
 
 
 def zero_launches() -> None:
@@ -835,7 +911,8 @@ def read_launches() -> dict:
     c = counters()
     bf16 = c.get("window_attn_launches_bf16", 0)
     return dict(post_chain=c.get("post_chain_launches", 0),
-                window_attn=c.get("window_attn_launches", 0) - bf16, window_attn_bf16=bf16)
+                window_attn=c.get("window_attn_launches", 0) - bf16, window_attn_bf16=bf16,
+                unet_join=c.get("unet_join_launches", 0))
 
 
 def phase_classic_path(ht, pc, wa, card: str, name: str, kw: dict, want_post_chain: int):
@@ -1296,7 +1373,7 @@ def phase_exemplar_sources(ht, pc, wa, card: str, tmp: str) -> dict:
         "method3_directory": dict(DeepExMethod=3, ScFrameDir=refdir),
         "encode_mode2": dict(DeepExEncMode=2, ScMinFreq=3),
     }
-    total = dict(post_chain=0, window_attn=0, window_attn_bf16=0)
+    total = dict(post_chain=0, window_attn=0, window_attn_bf16=0, unet_join=0)
     rows = {}
     for call, kw in calls.items():
         def run(kw=kw):
@@ -2611,7 +2688,7 @@ def phase_restore_streaming_engines(pc, wa, card: str, tmp: str) -> dict:
 
     src, ref = f"{tmp}/restore_gray.y4m", f"{tmp}/restore_ref.y4m"
     h, w = MAIN_SHAPE[1:]
-    total = dict(post_chain=0, window_attn=0, window_attn_bf16=0)
+    total = dict(post_chain=0, window_attn=0, window_attn_bf16=0, unet_join=0)
     for ex_model, prop in ((1, "deepex_propagate"), (2, "remaster_propagate")):
         name = f"restore_streaming/ex_model{ex_model}"
 
@@ -3395,6 +3472,7 @@ def main() -> None:
     import havc_tpu_torch as ht
     from havc_tpu_torch import kernels
     from havc_tpu_torch.ops import post_chain as pc
+    from havc_tpu_torch.ops import unet_join as uj
     from havc_tpu_torch.ops import window_attn as wa
 
     smi = smi_name_and_limit()
@@ -3424,7 +3502,7 @@ def main() -> None:
     summary = [phase_kernels(pc, smi, sass_per_pixel,
                              torch.cuda.get_device_properties(0).multi_processor_count,
                              smi_max_sm_clock_hz()),
-               *phase_window_attn(wa, smi)]
+               *phase_window_attn(wa, smi), phase_unet_join(uj, smi)]
     by_path = {}  # path -> {kernel: launches in that path's measured run}
     # before any model is on the card, so its peak is the filter's own
     phase_bw_tune_memory(ht, smi)
@@ -3499,6 +3577,7 @@ def main() -> None:
     summary[0]["launches"] = by_path["main_path"]["post_chain"]
     summary[1]["launches"] = by_path["exemplar_f32_vs_bf16/exemplar_path_f32"]["window_attn"]
     summary[2]["launches"] = by_path["exemplar_path"]["window_attn_bf16"]
+    summary[3]["launches"] = by_path["main_path"]["unet_join"]
     for row in summary:
         row["launches_by_path"] = {p: k[row["name"]] for p, k in by_path.items()}
         if not row["launches"]:

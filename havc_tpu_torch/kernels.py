@@ -65,6 +65,14 @@ SOURCES = {
             "window_attn_tc_smem": ([_I] * 6, ctypes.c_longlong),
         },
     ),
+    # the U-Net decoders' upsample-and-join, bit-identical to PyTorch's
+    # chain: no multiply-add contraction
+    "unet_join": Kernel(
+        flags=("-fmad=false",),
+        entries={
+            "unet_join_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
+        },
+    ),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -7,7 +7,9 @@ so that models/bridge.py maps a flax tree onto the ``state_dict``.
 
 * ``PixelShuffleICNR``: 1x1 conv to nf*4 -> ReLU -> ``pixel_shuffle(2)``
   (channel order ``(c_out, dy, dx)``) -> replication pad (1,0,1,0) -> 2x2
-  stride-1 average pool ("blur").
+  stride-1 average pool ("blur"); everything after the conv, and the
+  join with a block's skip or the head's input, is ``ops.unet_join`` (one
+  CUDA kernel on the card).
 * ``UnetBlockWide``: shuf(up) ++ BN(skip) -> ReLU -> one conv (+ fastai
   self-attention, softmax over axis 1).
 * ``UnetBlockDeep``: shuf(up) to half its channels ++ BN(skip) -> ReLU ->
@@ -28,7 +30,8 @@ import torch.nn.functional as F
 
 from ..ops.colorspace import copy_chroma, rgb_to_gray
 from ..ops.resize import resize
-from .layers import BatchNormInference, resize_nearest, sigmoid_range
+from ..ops.unet_join import unet_join
+from .layers import BatchNormInference, sigmoid_range
 from .resnet import RESNET_CONFIGS, ResNetBody
 
 __all__ = [
@@ -103,7 +106,8 @@ class ConvBnRelu(nn.Module):
 
 
 class PixelShuffleICNR(nn.Module):
-    """1x1 conv to features*scale^2 -> ReLU -> pixel shuffle -> blur."""
+    """1x1 conv to features*scale^2 -> ReLU -> pixel shuffle -> blur;
+    with ``skip``, joined with it (``ops.unet_join``)."""
 
     def __init__(self, cin: int, features: int, blur: bool = True,
                  use_bn: bool = True, scale: int = 2):
@@ -113,12 +117,11 @@ class PixelShuffleICNR(nn.Module):
         self.blur = blur
         self.scale = scale
 
-    def forward(self, x):
-        x = F.pixel_shuffle(F.relu(self.conv(x)), self.scale)
-        if self.blur:
-            x = F.pad(x, (1, 0, 1, 0), mode="replicate")
-            x = F.avg_pool2d(x, 2, stride=1)
-        return x
+    def forward(self, x, skip=None, skip_bn=None):
+        conv = self.conv
+        bn = conv.bn.fold() if hasattr(conv, "bn") else None
+        return unet_join(conv.conv(x), self.scale, bn, skip=skip, skip_bn=skip_bn,
+                         blur=self.blur)
 
 
 class UnetBlockWide(nn.Module):
@@ -135,11 +138,7 @@ class UnetBlockWide(nn.Module):
         self.out_channels = up_out
 
     def forward(self, up_in, skip):
-        x = self.shuf(up_in)
-        if x.shape[2:] != skip.shape[2:]:
-            x = resize_nearest(x, skip.shape[2], skip.shape[3])
-        cat = F.relu(torch.cat([x, self.bn(skip)], dim=1))
-        return self.conv(cat)
+        return self.conv(self.shuf(up_in, skip, self.bn.fold()))
 
 
 class UnetBlockDeep(nn.Module):
@@ -157,11 +156,7 @@ class UnetBlockDeep(nn.Module):
         self.out_channels = nf
 
     def forward(self, up_in, skip):
-        x = self.shuf(up_in)
-        if x.shape[2:] != skip.shape[2:]:
-            x = resize_nearest(x, skip.shape[2], skip.shape[3])
-        cat = F.relu(torch.cat([x, self.bn(skip)], dim=1))
-        return self.conv2(self.conv1(cat))
+        return self.conv2(self.conv1(self.shuf(up_in, skip, self.bn.fold())))
 
 
 class ResBlock(nn.Module):
@@ -209,8 +204,10 @@ class _DynamicUnet(nn.Module):
         for i, skip in enumerate((l3, l2, l1, relu_out)):
             y = getattr(self, f"up{i}")(y, skip)
         if y.shape[2] != inp.shape[2]:
-            y = self.final_shuf(y)
-        y = self.last_cross(torch.cat([y, inp], dim=1))
+            y = self.final_shuf(y, inp)  # the shuffle joined with the input
+        else:
+            y = torch.cat([y, inp], dim=1)
+        y = self.last_cross(y)
         return sigmoid_range(self.head_conv(y), *self.y_range)
 
 

@@ -17,7 +17,6 @@ import torch.nn.functional as F
 __all__ = [
     "BatchNormInference",
     "sigmoid_range",
-    "resize_nearest",
     "lecun_normal_",
     "init_flax_defaults",
     "same_pad",
@@ -42,28 +41,19 @@ class BatchNormInference(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def fold(self):
+        """``(inv, shift)``: the per-channel scale and shift of the fold."""
         inv = self.weight * (1.0 / torch.sqrt(self.running_var + self.eps))
-        shift = self.bias - self.running_mean * inv
+        return inv, self.bias - self.running_mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv, shift = self.fold()
         return x * inv[:, None, None] + shift[:, None, None]
 
 
 def sigmoid_range(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """fastai SigmoidRange: sigmoid scaled to (lo, hi)."""
     return torch.sigmoid(x) * (hi - lo) + lo
-
-
-def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """``jax.image.resize(..., "nearest")`` over NCHW: source index
-    ``floor((i + 0.5) * in / out)`` computed in float32."""
-    for dim, n in ((2, h), (3, w)):
-        m = x.shape[dim]
-        if m == n:
-            continue
-        off = (torch.arange(n, dtype=torch.float32) + 0.5) * m / n
-        idx = torch.floor(off).to(torch.long).to(x.device)
-        x = x.index_select(dim, idx)
-    return x
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -14,7 +14,9 @@ feature maps, which differs from both the matrices above and
 ``F.interpolate``: it antialiases when it downscales and, at the border,
 renormalises over the in-frame taps instead of replicating the edge.
 ``smart_resize_pad`` / ``smart_resize_restore`` are the exemplar path's
-aspect-preserving work geometry.
+aspect-preserving work geometry.  ``resize_nearest`` is
+``jax.image.resize(..., "nearest")`` over NCHW (the U-Net decoders' join
+of an upsampled map with a skip of another size).
 
 Both products run at IEEE float32 whatever the process's flags
 (``utils.precision.ieee_precision``), as the JAX package pins
@@ -34,7 +36,8 @@ import torch
 from ..utils.precision import ieee_precision
 
 __all__ = ["resize", "resize_kernel_matrix", "KERNELS", "bilinear_nchw", "PadMeta",
-           "smart_resize_pad", "smart_resize_restore", "pad_to_square", "unpad_from_square"]
+           "smart_resize_pad", "smart_resize_restore", "pad_to_square", "unpad_from_square",
+           "resize_nearest"]
 
 
 # --- kernel functions (numpy, host-side) ------------------------------------
@@ -285,3 +288,16 @@ def unpad_from_square(frames: torch.Tensor, meta: PadMeta, size: int = 512,
     top, left = meta.pad_h, meta.pad_w
     out = frames[..., top:top + new_h, left:left + new_w, :]
     return torch.clamp(resize(out, meta.orig_h, meta.orig_w, kernel), 0.0, 1.0)
+
+
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``jax.image.resize(..., "nearest")`` over NCHW: source index
+    ``floor((i + 0.5) * in / out)`` computed in float32."""
+    for dim, n in ((2, h), (3, w)):
+        m = x.shape[dim]
+        if m == n:
+            continue
+        off = (torch.arange(n, dtype=torch.float32) + 0.5) * m / n
+        idx = torch.floor(off).to(torch.long).to(x.device)
+        x = x.index_select(dim, idx)
+    return x

@@ -13,6 +13,7 @@ import _torch_threads  # noqa: F401  (sets torch's thread count for this process
     ("post_chain", ("-fmad=false",), ()),
     ("window_attn", (), ("-fmad=false",)),
     ("window_attn_tc", (), ("-fmad=false",)),
+    ("unet_join", ("-fmad=false",), ()),
 ])
 def test_build_command_carries_target_and_own_flags(name, own, absent):
     cmd = kernels.build_command(name, "out.so")
